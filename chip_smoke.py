@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive valida_tpu_torch's trace commit on one CUDA GPU and hold every
-kernel against its plain PyTorch version.
+"""Drive valida_tpu_torch's trace commit and PCS proof on one CUDA GPU and
+hold every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,8 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
 1. prints the card's name and power limit;
 2. builds every kernel (one nvcc per source, in parallel) and times it;
 3. compares each kernel with its plain version on the card, word for word:
-   ntt_dif_whole, ntt_step, ntt_tail and keccak256 at the listed shapes;
+   ntt_dif_whole, ntt_step, ntt_tail, keccak256 and poseidon2 at the
+   listed shapes;
 4. runs three commits through `commit_forward`, each with the launch
    counters set to 0 just before it and read just after, requires every
    kernel of that path to have launched, records every kernel call of the
@@ -18,8 +19,16 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    (a) `__graft_entry__.entry()`'s seed-0 [2^12, 32] trace,
    (b) the full-size commit, 2^19 x 128 (bench.py's shape),
    (c) 2^19 x 51, an odd width;
+   then three PCS proofs through `TwoAdicFriPcs` (commit two rounds, open
+   at extension points, verify on the host, reject a tampered proof), with
+   the same counters, recorded calls and pinned digests of the JAX
+   package's proof:
+   (d) Poseidon2 trees, 2^19 x 128 and 2^16 x 51, then 2^19 x 10,
+   (d') the same at 2^16 x 128, 2^13 x 51 and 2^16 x 10,
+   (e) (d')'s shape with Keccak trees;
 5. times each kernel at the main path's shapes with CUDA events, beside its
-   bound and its plain version, and times the commit and the NTT;
+   bound and its plain version, and times the commits, the NTT and the
+   opening, with a profile of commit (b) and of (d)'s opening;
 6. prints one JSON line of kernels, then the device line last.
 Any mismatch, build failure or launch error raises: the exit code is then
 non-zero and the last line is not printed.  With no GPU it exits 1.
@@ -49,6 +58,28 @@ BUTTERFLY_OPS = 10         # 32-bit ops of one radix-2 butterfly (Montgomery
 # five 1-bit rotations 10, lane updates 50), rho 48 (24 two-word funnel
 # shifts), chi 50 (one LOP3 per half), iota 2.
 KECCAK_F_OPS = 24 * 180
+# 32-bit instructions of one Poseidon2 permutation with its block's
+# absorption, as few as sm_90 needs.  A Montgomery product is 3 multiplies
+# (the 64-bit product, its low half by p^-1, the high half of that by p)
+# and 2 other instructions (subtract; add p and take the minimum, which is
+# one fused add-minimum); a modular addition is 2 (add; subtract p and
+# minimum, fused); a word taken mod p on absorption is 2 fused
+# subtract-minimum steps.  Products: 8 external rounds x 16 lanes x 4 (x^7)
+# + 13 internal rounds x (4 + 16 for the diagonal) = 772, and 8 to absorb a
+# block.  Additions: 9 external linear layers x 88 (per block of four 15,
+# block sums 12, adding them 16) + 8 x 16 external constants + 13 x (1
+# constant + 15 lane sum + 16) = 1,336, and 8 to absorb.
+# Multiplies run on one unit at INT32_OPS_PER_CLOCK_PER_SM; additions and
+# minima run on the integer ALUs at the same rate, and an addition may
+# also run on the multiplier (as a multiply-add by 1), so the two units
+# can share them.  The least time is therefore the larger of the
+# multiplies alone and half of all instructions, both at that rate.
+POSEIDON2_PRODUCTS = 8 * 16 * 4 + 13 * (4 + 16) + 8
+POSEIDON2_ADDITIONS = 9 * 88 + 8 * 16 + 13 * (1 + 15 + 16) + 8
+POSEIDON2_MUL_OPS = POSEIDON2_PRODUCTS * 3
+POSEIDON2_ALU_OPS = POSEIDON2_PRODUCTS * 2 + POSEIDON2_ADDITIONS * 2 + 8 * 2
+POSEIDON2_BLOCK_OPS = max(POSEIDON2_MUL_OPS,
+                          (POSEIDON2_MUL_OPS + POSEIDON2_ALU_OPS) / 2)
 
 # 32-byte roots of commit_forward on default_rng(0) traces, computed by the
 # JAX package's numpy path (tests/test_torch_commit.py::reference_commit_root)
@@ -69,7 +100,137 @@ PATHS = {
     "c": ((19, 51), ("ntt_step", "ntt_tail", "keccak256")),
 }
 
+# the PCS proofs of the main path: (log_n, cols) of the three committed
+# matrices (round 1 commits the first two, round 2 the third), the Merkle
+# hasher, and the kernels each must and must not launch
+PCS_PATHS = {
+    "d": (((19, 128), (16, 51), (19, 10)), "poseidon2",
+          ("poseidon2", "ntt_dif_whole", "ntt_step", "ntt_tail"),
+          ("keccak256",)),
+    "d'": (((16, 128), (13, 51), (16, 10)), "poseidon2",
+           ("poseidon2", "ntt_dif_whole", "ntt_step", "ntt_tail"),
+           ("keccak256",)),
+    "e": (((16, 128), (13, 51), (16, 10)), "keccak",
+          ("keccak256", "ntt_dif_whole", "ntt_step", "ntt_tail"),
+          ("poseidon2",)),
+}
+# the opening point, an element of the degree-5 extension
+PCS_Z = (1234567891, 987654321, 192837465, 564738291, 1029384756)
+# default_config's FRI parameters (valida_tpu/core/config.py)
+PCS_FRI = dict(log_blowup=1, num_queries=40, proof_of_work_bits=8,
+               log_final=0)
+# SHA-256 of the opened values and of the proof's words (proof_digest) and
+# the two commitment roots, as the JAX package's numpy path produces them
+# (tests/test_torch_pcs.py::reference_pcs_digests); at full width only the
+# roots, which alone take it half an hour (::reference_pcs_roots)
+PCS_GOLDEN = {
+    "d": {
+        "roots": ["edf2a50f1a1aa1735a939c46a5fce81a"
+                  "9e76c74ac3612c51d7b4a15099a79b4c",
+                  "0904782deffeb43f7132e117f28e4755"
+                  "727bd26f19406a1274788c718c540e52"],
+    },
+    "d'": {
+        "opened": "553285ed35cc59b76af54b2fc13c9910"
+                  "4a148bb2a702f250fbc5009cacd87a0b",
+        "proof": "f6f1b843a59f799fad813694bdbf3894"
+                 "de171b6a627d5dd4b8f92778656d0456",
+        "roots": ["c36c9147a247a70d79b77e4539e34e10"
+                  "3efaa43f50d5cb60027f110812d65009",
+                  "fa771c67f88fae3491a4dd4a39251d39"
+                  "3f8c85160045a65724affd45d7690f24"],
+    },
+    "e": {
+        "opened": "553285ed35cc59b76af54b2fc13c9910"
+                  "4a148bb2a702f250fbc5009cacd87a0b",
+        "proof": "78a592401eaaee3e48b5d3641a4f016c"
+                 "6daa0a4a04be2eb2c9e09661b701c751",
+        "roots": ["71ec0f126007be04d5dc77925347e25e"
+                  "b3aa6d7738e5d520f9898578bf7bddc7",
+                  "5132686b6a2ba0e1b065631fed934c58"
+                  "33813ad3b3851e9175cf8efe0d3af6bf"],
+    },
+}
+
+
+def _u32_words(items) -> np.ndarray:
+    parts = [np.asarray(x, dtype=np.uint32).reshape(-1) for x in items]
+    return np.concatenate(parts) if parts else np.zeros(0, np.uint32)
+
+
+def words_hex(words) -> str:
+    """u32 words as the hex of their little-endian bytes."""
+    return np.asarray(words, dtype=np.uint32).astype("<u4").tobytes().hex()
+
+
+def proof_digest(opened, proof) -> dict:
+    """SHA-256 of a PCS proof of either package, read by field name and
+    flattened to little-endian u32 words in a fixed order: `opened` is
+    every opened value (round, matrix, point, column: 5 words); `proof`
+    is the commit-phase roots, the final polynomial, the proof-of-work
+    witness, the direct-opened polynomials, then per query the input
+    openings (opened rows, then the path) of every round and the
+    commit-phase openings (pair row, then the path) of every layer."""
+    import hashlib
+
+    fri = proof.fri
+    items = list(fri.commit_phase_commits)
+    items += [fri.final_poly, fri.pow_witness]
+    items += list(proof.direct_polys)
+    for qp in proof.query_proofs:
+        for op in qp.input_openings:
+            items += list(op.opened_rows) + list(op.path)
+        for op in qp.fri_query.commit_phase_openings:
+            items += [op.pair_row] + list(op.path)
+    values = [val for rnd in opened for mat in rnd for pt in mat
+              for val in pt]
+    return {
+        "opened": hashlib.sha256(_u32_words(values).tobytes()).hexdigest(),
+        "proof": hashlib.sha256(_u32_words(items).tobytes()).hexdigest(),
+    }
+
+
+def pcs_matrices(shapes) -> list:
+    """The committed matrices of a PCS path: default_rng(0) draws, in
+    order, canonical u32 [2^log_n, cols]."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, P, size=(1 << log_n, cols), dtype=np.uint32)
+            for log_n, cols in shapes]
+
+
+def pcs_points(shapes) -> list:
+    """Round 1 opens its first matrix at z and z*g (g generates the
+    matrix's domain) and its second at z; round 2 opens at z."""
+    g = pow(31, (P - 1) >> shapes[0][0], P)
+    zg = tuple(c * g % P for c in PCS_Z)
+    return [[[PCS_Z, zg], [PCS_Z]], [[PCS_Z]]]
+
+
+def pcs_prove(pcs, challenger, mats, points):
+    """Commit two rounds, observe both roots, open.  Takes the PCS and the
+    challenger of either package; returns ((root, data) per round, opened
+    values, proof)."""
+    rounds = [pcs.commit_batches(mats[:2]), pcs.commit_batches(mats[2:])]
+    for root, _ in rounds:
+        challenger.observe_digest(root)
+    opened, proof = pcs.open_multi_batches(
+        [(data, pts) for (_, data), pts in zip(rounds, points)], challenger)
+    return rounds, opened, proof
+
+
+def pcs_verify(pcs, challenger, shapes, roots, points, opened, proof):
+    """Replay the transcript and verify; raises the package's FriError."""
+    for root in roots:
+        challenger.observe_digest(root)
+    dims = [[(1 << n, c) for n, c in shapes[:2]],
+            [(1 << n, c) for n, c in shapes[2:]]]
+    pcs.verify_multi_batches(list(zip(roots, points)), dims, opened, proof,
+                             challenger)
+
+
 SOURCES = {
+    "poseidon2": ("valida_tpu_torch/csrc/poseidon2.cu",
+                  "valida_tpu/crypto/poseidon2.py:229"),
     "ntt_dif_whole": ("valida_tpu_torch/csrc/ntt.cu",
                       "valida_tpu/poly/mxu_ntt.py:463"),
     "ntt_step": ("valida_tpu_torch/csrc/ntt.cu",
@@ -104,9 +265,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from valida_tpu_torch import _build
+    from valida_tpu_torch.commit.fri import FriConfig, FriError
     from valida_tpu_torch.commit.lde_commit import commit_forward
-    from valida_tpu_torch.convert import table, to_numpy
+    from valida_tpu_torch.commit.pcs import TwoAdicFriPcs
+    from valida_tpu_torch.convert import table, to_int32_bits, to_numpy
     from valida_tpu_torch.crypto import keccak
+    from valida_tpu_torch.crypto import poseidon2 as p2
+    from valida_tpu_torch.crypto.challenger import DuplexChallenger
     from valida_tpu_torch.poly import radix_ntt
 
     dev = torch.device("cuda")
@@ -220,6 +385,22 @@ def main() -> int:
                   keccak.keccak256_words_plain(w), f"({batch}, {n_words})")
     log("keccak256 == plain at n_words {1..128} x batch {1,3,2047,2^16}")
 
+    # words at and around the multiples of p that a u32 can hold
+    edge = to_int32_bits(torch.tensor(
+        [0, P - 1, P, 2 * P - 1, 2 * P, 0xFFFFFFFF], dtype=torch.int64,
+        device=dev))
+    for n_words in [1, 7, 8, 9, 10, 16, 51, 128, 179]:
+        for batch in [1, 3, 2047, 1 << 16]:
+            w = rand_words((batch, n_words))
+            flat = w.view(-1)
+            k = min(flat.numel(), 3 * edge.numel())
+            flat[:k] = edge.repeat(3)[:k]
+            flat[-k:] = edge.repeat(3)[:k]
+            check("poseidon2", p2.hash_words(w), p2.hash_words_plain(w),
+                  f"({batch}, {n_words})")
+    log("poseidon2 == plain at n_words {1,7,8,9,10,16,51,128,179} x batch "
+        "{1,3,2047,2^16}, with words 0, p-1, p, 2p-1, 2p, 2^32-1")
+
     # 4. the main path: three commits, the launch counters around each.
     # Every kernel call is recorded (its input, and its output as the kernel
     # left it) and then held against the plain version on the same input.
@@ -233,52 +414,129 @@ def main() -> int:
                 radix_ntt._whole_tables, log_n, True, device=dev)[0])),
         "keccak256": lambda w, batch, n_words:
             keccak.keccak256_words_plain(w),
+        "poseidon2": lambda w, batch, n_words: p2.hash_words_plain(w),
     }
     calls = []
+    small_seen, passed_over = {}, {}
     launch = _build.launch
+    # a proof makes some 230 hash calls, most of them on a few rows: all
+    # calls on more than SMALL_HASH rows are recorded, and every eighth of
+    # the rest (the first, the ninth, ...)
+    SMALL_HASH = 1 << 12
+    sample_small = [False]
 
     def recording_launch(lib_name, fn, x, y, *rest):
+        name = fn.removesuffix("_launch")
+        if (sample_small[0] and name in ("poseidon2", "keccak256")
+                and x.shape[0] <= SMALL_HASH):
+            seen = small_seen[name] = small_seen.get(name, 0) + 1
+            if seen % 8 != 1:
+                passed_over[name] = passed_over.get(name, 0) + 1
+                launch(lib_name, fn, x, y, *rest)
+                return
         x_in = x.clone()
         launch(lib_name, fn, x, y, *rest)
-        calls.append((fn.removesuffix("_launch"), x_in, y.clone(), rest))
+        calls.append((name, x_in, y.clone(), rest))
+
+    def run_recorded(what, needed, forbidden, fn, sample=False):
+        """Run fn() with the launch counters at 0 and every kernel call
+        recorded; require the path's kernels to have launched and the
+        forbidden ones not to; hold every recorded call against the plain
+        version.  Returns (fn's result, the counters)."""
+        calls.clear()
+        small_seen.clear()
+        passed_over.clear()
+        sample_small[0] = sample
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        _build.launch = recording_launch
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            _build.launch = launch
+        counts = dict(_build.LAUNCHES)
+        log(f"{what} launches: {counts}")
+        missing = [k for k in needed if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"{what} launched none of {missing}")
+        extra = [k for k in forbidden if counts[k] != 0]
+        if extra:
+            raise RuntimeError(f"{what} must not launch {extra}")
+        seen = {}
+        for name, x_in, y, rest in calls:
+            check(name, y, plain_of[name](x_in, *rest),
+                  f"{what} input {tuple(x_in.shape)}")
+            seen.setdefault(name, []).append(tuple(x_in.shape))
+        held = {k: len(v) + passed_over.get(k, 0) for k, v in seen.items()}
+        if held != {k: n for k, n in counts.items() if n}:
+            raise RuntimeError(f"{what}: recorded calls do not match the "
+                               f"launch counters")
+        log(f"{what}: {len(calls)} of {sum(counts.values())} kernel calls "
+            f"held against plain, all equal"
+            + (f" (passed over: {passed_over})" if passed_over else "")
+            + ", at " + "; ".join(f"{k} {sorted(set(v))}"
+                                  for k, v in sorted(seen.items())))
+        calls.clear()
+        return out, counts
 
     launches, traces = {}, {}
     for path, (shape, needed) in PATHS.items():
         t = traces[shape] = torch.from_numpy(
             trace(*shape).view(np.int32)).to(dev)
-        calls.clear()
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        _build.launch = recording_launch
-        root = commit_forward(t, device="cuda")
-        torch.cuda.synchronize()
-        _build.launch = launch
-        launches[path] = dict(_build.LAUNCHES)
-        log(f"commit ({path}) 2^{shape[0]} x {shape[1]} launches: "
-            f"{launches[path]}")
-        missing = [k for k in needed if launches[path][k] == 0]
-        if missing:
-            raise RuntimeError(f"commit ({path}) launched none of {missing}")
-        got = b"".join(int(w).to_bytes(4, "little")
-                       for w in to_numpy(root)).hex()
+        what = f"commit ({path}) 2^{shape[0]} x {shape[1]}"
+        root, launches[path] = run_recorded(
+            what, needed, (), lambda: commit_forward(t, device="cuda"))
+        got = words_hex(to_numpy(root))
         if got != GOLDEN[shape]:
             raise RuntimeError(f"commit ({path}) root is {got}, the JAX "
                                f"package's is {GOLDEN[shape]}")
-        log(f"commit ({path}) 2^{shape[0]} x {shape[1]}: root {got} == "
-            f"JAX package's")
-        seen = {}
-        for name, x_in, y, rest in calls:
-            check(name, y, plain_of[name](x_in, *rest),
-                  f"commit ({path}) input {tuple(x_in.shape)}")
-            seen.setdefault(name, []).append(tuple(x_in.shape))
-        if {k: len(v) for k, v in seen.items()} != {
-                k: n for k, n in launches[path].items() if n}:
-            raise RuntimeError(f"commit ({path}): recorded calls do not "
-                               f"match the launch counters")
-        log(f"commit ({path}): all {len(calls)} kernel calls == plain, at "
-            + "; ".join(f"{k} {sorted(set(v))}"
-                        for k, v in sorted(seen.items())))
-        calls.clear()
+        log(f"{what}: root {got} == JAX package's")
+
+    # the PCS proofs: commit two rounds, open, verify on the host, reject a
+    # tampered proof, compare with the JAX package's digests
+    pcs_state = {}
+    for path, (shapes, hasher, needed, forbidden) in PCS_PATHS.items():
+        what = f"pcs ({path}) {hasher} " + " ".join(
+            f"2^{n}x{c}" for n, c in shapes)
+        pcs = TwoAdicFriPcs(FriConfig(hasher=hasher, **PCS_FRI),
+                            coset_shift=31)
+        mats = [torch.from_numpy(m.view(np.int32)).to(dev)
+                for m in pcs_matrices(shapes)]
+        points = pcs_points(shapes)
+        (rounds, opened, proof), launches[path] = run_recorded(
+            what, needed, forbidden,
+            lambda: pcs_prove(pcs, DuplexChallenger(), mats, points),
+            sample=True)
+        roots = [root for root, _ in rounds]
+        t0 = time.perf_counter()
+        pcs_verify(pcs, DuplexChallenger(), shapes, roots, points, opened,
+                   proof)
+        t_verify = time.perf_counter() - t0
+        bad = [[[list(pt) for pt in mat] for mat in rnd] for rnd in opened]
+        v = bad[0][0][1][7]
+        bad[0][0][1][7] = (v[0], v[1], (v[2] + 1) % P, v[3], v[4])
+        try:
+            pcs_verify(pcs, DuplexChallenger(), shapes, roots, points, bad,
+                       proof)
+        except FriError as e:
+            log(f"{what}: verified on the host in {t_verify:.1f} s; one "
+                f"changed opened value is rejected: {e}")
+        else:
+            raise RuntimeError(f"{what}: a tampered proof was accepted")
+        got = proof_digest(opened, proof)
+        got["roots"] = [words_hex(r) for r in roots]
+        log(f"{what}: {len(proof.fri.commit_phase_commits)} FRI layers, "
+            f"witness {proof.fri.pow_witness}, digests {got}")
+        want = PCS_GOLDEN.get(path, {})
+        for key, value in want.items():
+            if got[key] != value:
+                raise RuntimeError(f"{what}: {key} is {got[key]}, the JAX "
+                                   f"package's is {value}")
+        if want:
+            log(f"{what}: {sorted(want)} == JAX package's")
+        if path == "d":
+            pcs_state = dict(pcs=pcs, mats=mats, points=points, rounds=rounds)
 
     # 5. timings at the main path's shapes
     kernels = []
@@ -344,6 +602,26 @@ def main() -> int:
     log(f"keccak leaf rows/s at 2^20 x 128 words: "
         f"{rows / (kernels[-1]['ms'] / 1e3):.6g}")
 
+    # poseidon2: the leaf level of path (d), 2^20 rows of 128 words, and
+    # its first compression, 2^19 rows of 16 words
+    rows, n_words = 1 << 20, 128
+    w = rand_field((rows, n_words))
+    report("poseidon2", lambda: p2.hash_words(w),
+           lambda: p2.hash_words_plain(w), rows * (n_words + 8) * 4,
+           rows * -(-n_words // 8) * POSEIDON2_BLOCK_OPS, 10, 1)
+    log(f"poseidon2 leaf rows/s at 2^20 x 128 words: "
+        f"{rows / (kernels[-1]['ms'] / 1e3):.6g}")
+    rows, n_words = 1 << 19, 16
+    w16 = rand_field((rows, n_words))
+    ms16 = cuda_ms(lambda: p2.hash_words(w16), 10)
+    plain16 = cuda_ms(lambda: p2.hash_words_plain(w16), 1)
+    t_bytes = rows * (n_words + 8) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = rows * 2 * POSEIDON2_BLOCK_OPS / int32_ops_per_s * 1e3
+    log(f"poseidon2 at 2^19 x 16 words: {ms16:.4f} ms/call, plain "
+        f"{plain16:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    del w, w16
+
     # NTT butterflies/s at 2^19 x 128, as bench.py counts them
     n, cols = 1 << 19, 128
     x = rand_field((n, cols))
@@ -366,30 +644,71 @@ def main() -> int:
         best = min(best, time.perf_counter() - t0)
     log(f"commit 2^19 x 128 wall-clock: {best * 1e3:.3f} ms (best of 3)")
 
-    # where commit (b)'s time goes: one warm commit under torch.profiler
+    # where the time goes: one warm run under torch.profiler
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        commit_forward(traces[(19, 128)], device="cuda")
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    ours = {k: sum(t for name, t in by_name.items() if f"{k}_kernel(" in name)
-            for k in SOURCES}
-    busy = sum(by_name.values())
-    log(f"commit 2^19 x 128 profile (under the profiler {wall_us / 1e3:.3f} "
-        f"ms wall): device busy {busy / 1e3:.3f} ms, idle share "
-        f"{1 - busy / wall_us:.4f}; by kernel (ms): "
-        + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in ours.items())
-        + f", other PyTorch kernels {(busy - sum(ours.values())) / 1e3:.3f}")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {t / 1e3:9.3f} ms  {name[:110]}")
+    def profile_run(what, fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name, n_ops = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+                n_ops += 1
+        ours = {k: sum(t for name, t in by_name.items()
+                       if f"{k}_kernel(" in name) for k in SOURCES}
+        busy = sum(by_name.values())
+        if busy <= 0:
+            raise RuntimeError(f"{what}: the profile shows no device time")
+        log(f"{what} profile (under the profiler {wall_us / 1e3:.3f} ms "
+            f"wall): {n_ops} device operations, device busy "
+            f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}; by "
+            f"kernel (ms): "
+            + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in ours.items())
+            + f", other PyTorch kernels "
+              f"{(busy - sum(ours.values())) / 1e3:.3f}")
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"  {t / 1e3:9.3f} ms  {name[:110]}")
+
+    profile_run("commit 2^19 x 128",
+                lambda: commit_forward(traces[(19, 128)], device="cuda"))
+
+    # path (d): commit_batches of both rounds and open_multi_batches, warm
+    def best_of_3(fn):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    pcs, mats, points = (pcs_state[k] for k in ("pcs", "mats", "points"))
+
+    def commit_d():
+        pcs.commit_batches(mats[:2])
+        pcs.commit_batches(mats[2:])
+
+    def open_d():
+        challenger = DuplexChallenger()
+        for root, _ in pcs_state["rounds"]:
+            challenger.observe_digest(root)
+        pcs.open_multi_batches(
+            [(data, pts) for (_, data), pts
+             in zip(pcs_state["rounds"], points)], challenger)
+
+    log(f"pcs (d) commit_batches, both rounds, wall-clock: "
+        f"{best_of_3(commit_d):.3f} ms (best of 3)")
+    log(f"pcs (d) open_multi_batches wall-clock: {best_of_3(open_d):.3f} ms "
+        f"(best of 3)")
+    profile_run("pcs (d) commit_batches", commit_d)
+    profile_run("pcs (d) open_multi_batches", open_d)
 
     # 6. results
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,7 +16,9 @@ from valida_tpu.crypto import keccak
 from valida_tpu.crypto import merkle as rmerkle
 from valida_tpu.field import babybear as bb
 from valida_tpu.poly import ntt as nttm
+from valida_tpu_torch.commit.fri import FriConfig as PortFriConfig
 from valida_tpu_torch.commit.lde_commit import commit_forward, commit_matrices
+from valida_tpu_torch.commit.pcs import TwoAdicFriPcs as PortPcs
 from valida_tpu_torch.convert import from_reference, to_numpy
 from valida_tpu_torch.crypto import merkle
 
@@ -65,18 +67,34 @@ def test_commit_matrices_matches_pcs_commit(log_blowup, shift):
     want, _ = pcs.commit_batches(mats)
     got = commit_matrices(mats, log_blowup, shift, device="cpu")
     np.testing.assert_array_equal(to_numpy(got), want)
+    # one commit: the PCS's, with a domain shift per matrix and either hasher
+    shifts = [1, 5, bb.GENERATOR, 1]
+    for hasher in ("keccak", "poseidon2"):
+        pcs = TwoAdicFriPcs(FriConfig(log_blowup=log_blowup, hasher=hasher),
+                            coset_shift=shift)
+        want, _ = pcs.commit_batches(mats, shifts)
+        got = commit_matrices(mats, log_blowup, shift, device="cpu",
+                              hasher=hasher, domain_shifts=shifts)
+        np.testing.assert_array_equal(to_numpy(got), want)
+        port = PortPcs(PortFriConfig(log_blowup=log_blowup, hasher=hasher),
+                       coset_shift=shift, device="cpu")
+        np.testing.assert_array_equal(port.commit_batches(mats, shifts)[0],
+                                      want)
 
 
 def test_merkle_levels_match_reference_tree():
     rng = np.random.default_rng(4)
     mats = [rng.integers(0, bb.P, size=s, dtype=np.uint32)
             for s in [(16, 3), (4, 5), (16, 1), (8, 2), (1, 4)]]
-    tree = rmerkle.MerkleTree(mats)
-    root, levels = merkle.merkle_levels([from_reference(m) for m in mats])
-    np.testing.assert_array_equal(to_numpy(root), tree.root())
-    assert sorted(levels) == sorted(tree.levels)
-    for k, d in levels.items():
-        np.testing.assert_array_equal(to_numpy(d), np.asarray(tree.levels[k]))
+    for hasher in ("keccak", "poseidon2"):
+        tree = rmerkle.MerkleTree(mats, hasher=hasher)
+        root, levels = merkle.merkle_levels(
+            [from_reference(m) for m in mats], hasher)
+        np.testing.assert_array_equal(to_numpy(root), tree.root())
+        assert sorted(levels) == sorted(tree.levels)
+        for k, d in levels.items():
+            np.testing.assert_array_equal(to_numpy(d),
+                                          np.asarray(tree.levels[k]))
 
 
 def _imports(path: Path):
@@ -90,7 +108,15 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "valida_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    assert len(files) > 20
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"valida_tpu_torch/field/ext.py", "valida_tpu_torch/poly/domain.py",
+            "valida_tpu_torch/crypto/poseidon2.py",
+            "valida_tpu_torch/crypto/p3_rng.py",
+            "valida_tpu_torch/crypto/poseidon.py",
+            "valida_tpu_torch/crypto/challenger.py",
+            "valida_tpu_torch/commit/fri.py",
+            "valida_tpu_torch/commit/pcs.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -104,4 +130,8 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
         commit_forward(trace)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         commit_matrices([trace])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        PortPcs(PortFriConfig(hasher="poseidon2"))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        PortPcs()
     assert chip_smoke.main() == 1

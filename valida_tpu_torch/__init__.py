@@ -1,4 +1,5 @@
-"""valida_tpu_torch: the Valida STARK prover's trace commit in PyTorch, with
+"""valida_tpu_torch: the Valida STARK prover's trace commit and polynomial
+commitment scheme (FRI, Fiat-Shamir, Merkle openings) in PyTorch, with
 hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 Field words live on the device as torch.int32 (every BabyBear word is below

@@ -38,10 +38,15 @@ SIGNATURES = {
     "keccak": {
         "keccak256_launch": [_P, _P, _I, _I, _P],
     },
+    "poseidon2": {
+        "poseidon2_launch": [_P, _P, _I, _I, _P],
+        "poseidon2_set_constants": [_P, _I],  # host words, count: no stream
+    },
 }
 
 # launches of each kernel, counted by its wrapper where it launches
-LAUNCHES = {"ntt_step": 0, "ntt_tail": 0, "ntt_dif_whole": 0, "keccak256": 0}
+LAUNCHES = {"ntt_step": 0, "ntt_tail": 0, "ntt_dif_whole": 0, "keccak256": 0,
+            "poseidon2": 0}
 
 _LIBS: dict = {}
 

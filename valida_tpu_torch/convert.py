@@ -51,3 +51,62 @@ def table(make, *args, device):
              if isinstance(arr, tuple) else from_reference(arr, device))
         _TABLES[key] = t
     return t
+
+
+# ---------------------------------------------------------------------------
+# PCS proofs across the two packages
+# ---------------------------------------------------------------------------
+#
+# A proof of either package holds numpy u32 arrays, tuples and python ints
+# under the same field names; only the dataclasses differ.  The two
+# functions below rebuild one package's dataclasses from the other's
+# values, so a proof made by one can be handed to the other's verifier.
+# The reference's classes are passed in (its modules commit.fri and
+# commit.pcs), since this package imports nothing of it.
+
+
+def _rebuild_proof(proof, fri_mod, pcs_mod):
+    def words(a):
+        return np.array(a, dtype=np.uint32)
+
+    def final(fp):
+        if fp and isinstance(fp[0], (tuple, list)):
+            return tuple(tuple(int(x) for x in c) for c in fp)
+        return tuple(int(x) for x in fp)
+
+    def fri_query(q):
+        return fri_mod.FriQueryProof(commit_phase_openings=[
+            fri_mod.CommitPhaseOpening(pair_row=words(op.pair_row),
+                                       path=[words(d) for d in op.path])
+            for op in q.commit_phase_openings])
+
+    fri_queries = [fri_query(q) for q in proof.fri.query_proofs]
+    fri = fri_mod.FriProof(
+        commit_phase_commits=[words(r) for r in proof.fri.commit_phase_commits],
+        final_poly=final(proof.fri.final_poly),
+        pow_witness=int(proof.fri.pow_witness),
+        query_proofs=fri_queries)
+    queries = [
+        pcs_mod.PcsQueryProof(
+            input_openings=[
+                pcs_mod.BatchOpening(
+                    opened_rows=[words(r) for r in op.opened_rows],
+                    path=[words(d) for d in op.path])
+                for op in qp.input_openings],
+            fri_query=fq)
+        for qp, fq in zip(proof.query_proofs, fri_queries)]
+    return pcs_mod.PcsProof(fri=fri, query_proofs=queries,
+                            direct_polys=[words(m) for m in proof.direct_polys])
+
+
+def proof_from_reference(proof):
+    """A PcsProof of the JAX package -> this package's PcsProof."""
+    from .commit import fri, pcs
+
+    return _rebuild_proof(proof, fri, pcs)
+
+
+def proof_to_reference(proof, ref_fri, ref_pcs):
+    """This package's PcsProof -> the JAX package's, whose modules
+    commit.fri and commit.pcs the caller passes in."""
+    return _rebuild_proof(proof, ref_fri, ref_pcs)

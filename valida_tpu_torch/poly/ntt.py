@@ -223,3 +223,22 @@ def coset_lde(evals: torch.Tensor, log_blowup: int, shift: int,
                       device=coeffs.device)
     padded = torch.cat([coeffs, pad], dim=0)
     return coset_eval_from_coeffs(padded, shift, out_bitrev=out_bitrev)
+
+
+def _mod_sum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Sum of field words along an axis, reduced mod p.  An int64
+    accumulator holds 2^32 words below p, so one reduction ends it."""
+    if x.shape[axis] >= 1 << 32:
+        raise ValueError("axis too long for one int64 sum")
+    return (x.sum(dim=axis, dtype=torch.int64) % bb.P).to(torch.int32)
+
+
+def eval_at_ext_point(coeffs: torch.Tensor,
+                      z_powers: torch.Tensor) -> torch.Tensor:
+    """Evaluate base-field polynomial columns at an extension point.
+
+    coeffs: [N, C] Montgomery; z_powers: [N, 5] Montgomery (powers of z).
+    Returns [C, 5]."""
+    out = [_mod_sum(bb.mul(coeffs, z_powers[:, d][:, None]), axis=0)
+           for d in range(5)]
+    return torch.stack(out, dim=-1)
