@@ -8,8 +8,9 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
 1. prints the card's name and power limit;
 2. builds every kernel (one nvcc per source, in parallel) and times it;
 3. compares each kernel with its plain version on the card, word for word:
-   ntt_dif_whole, ntt_step, ntt_tail, keccak256 and poseidon2 at the
-   listed shapes;
+   ntt_dif_whole (two and three passes, even and uneven splits, constant
+   arrays of 0 and p - 1), ntt_step, ntt_tail, keccak256 and poseidon2 at
+   the listed shapes;
 4. runs three commits through `commit_forward`, each with the launch
    counters set to 0 just before it and read just after, requires every
    kernel of that path to have launched, records every kernel call of the
@@ -51,8 +52,21 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # whitepaper; CUDA C++ Programming Guide, arithmetic instruction throughput).
 # The peak is this times the SM count times the card's maximum SM clock.
 INT32_OPS_PER_CLOCK_PER_SM = 64
-BUTTERFLY_OPS = 10         # 32-bit ops of one radix-2 butterfly (Montgomery
-                           # multiply, add, sub, reductions)
+# 32-bit instructions of one radix-2 butterfly, as few as sm_90 needs: the
+# Montgomery product of the difference is 3 multiplies (the 64-bit product,
+# its low half by p^-1, the high half of that by p) and 2 others (subtract;
+# add p and take the minimum, one fused add-minimum); the unreduced
+# difference a + p - b is 1 three-input add; the modular sum is 2 (add;
+# subtract p and minimum, fused).  Multiplies run on one unit at
+# INT32_OPS_PER_CLOCK_PER_SM; the other 5 run on the integer ALUs at the
+# same rate or on the multiplier (as a multiply-add by 1), so the two units
+# share them: the least time is the larger of the multiplies alone and half
+# of all instructions, both at that rate.  BUTTERFLY_OPS is that count of
+# issue slots on one unit.
+BUTTERFLY_MUL_OPS = 3
+BUTTERFLY_ALU_OPS = 5
+BUTTERFLY_OPS = max(BUTTERFLY_MUL_OPS,
+                    (BUTTERFLY_MUL_OPS + BUTTERFLY_ALU_OPS) / 2)
 # 32-bit instructions of one Keccak-f round on 64-bit lanes kept as 32-bit
 # halves, with 3-input logic (LOP3) fused: theta 80 (column parities 20,
 # five 1-bit rotations 10, lane updates 50), rho 48 (24 two-word funnel
@@ -63,21 +77,18 @@ KECCAK_F_OPS = 24 * 180
 # (the 64-bit product, its low half by p^-1, the high half of that by p)
 # and 2 other instructions (subtract; add p and take the minimum, which is
 # one fused add-minimum); a modular addition is 2 (add; subtract p and
-# minimum, fused); a word taken mod p on absorption is 2 fused
-# subtract-minimum steps.  Products: 8 external rounds x 16 lanes x 4 (x^7)
-# + 13 internal rounds x (4 + 16 for the diagonal) = 772, and 8 to absorb a
-# block.  Additions: 9 external linear layers x 88 (per block of four 15,
-# block sums 12, adding them 16) + 8 x 16 external constants + 13 x (1
-# constant + 15 lane sum + 16) = 1,336, and 8 to absorb.
-# Multiplies run on one unit at INT32_OPS_PER_CLOCK_PER_SM; additions and
-# minima run on the integer ALUs at the same rate, and an addition may
-# also run on the multiplier (as a multiply-add by 1), so the two units
-# can share them.  The least time is therefore the larger of the
-# multiplies alone and half of all instructions, both at that rate.
+# minimum, fused); a word is taken mod p by the product that absorbs it.
+# Products: 8 external rounds x 16 lanes x 4 (x^7) + 13 internal rounds x
+# (4 + 16 for the diagonal) = 772, and 8 to absorb a block.  Additions: 9
+# external linear layers x 72 (per block of four 11, block sums 12, adding
+# them 16) + 8 x 16 external constants + 13 x (1 constant + 15 lane sum +
+# 16) = 1,192, and 8 to absorb.
+# The two units share the additions as in a butterfly: the least time is
+# the larger of the multiplies alone and half of all instructions.
 POSEIDON2_PRODUCTS = 8 * 16 * 4 + 13 * (4 + 16) + 8
-POSEIDON2_ADDITIONS = 9 * 88 + 8 * 16 + 13 * (1 + 15 + 16) + 8
+POSEIDON2_ADDITIONS = 9 * 72 + 8 * 16 + 13 * (1 + 15 + 16) + 8
 POSEIDON2_MUL_OPS = POSEIDON2_PRODUCTS * 3
-POSEIDON2_ALU_OPS = POSEIDON2_PRODUCTS * 2 + POSEIDON2_ADDITIONS * 2 + 8 * 2
+POSEIDON2_ALU_OPS = POSEIDON2_PRODUCTS * 2 + POSEIDON2_ADDITIONS * 2
 POSEIDON2_BLOCK_OPS = max(POSEIDON2_MUL_OPS,
                           (POSEIDON2_MUL_OPS + POSEIDON2_ALU_OPS) / 2)
 
@@ -272,7 +283,7 @@ def main() -> int:
     from valida_tpu_torch.crypto import keccak
     from valida_tpu_torch.crypto import poseidon2 as p2
     from valida_tpu_torch.crypto.challenger import DuplexChallenger
-    from valida_tpu_torch.poly import radix_ntt
+    from valida_tpu_torch.poly import ntt, radix_ntt
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -337,16 +348,47 @@ def main() -> int:
             raise RuntimeError(f"{name} differs from its plain version at "
                                f"{what}: max |diff| = {e}")
 
-    for log_n, cols in [(14, 128), (15, 256), (20, 128)]:
+    # ntt_dif_whole: the smallest size, uneven splits (15, 21), the main
+    # path's size, three passes (23), the widest rows; then three passes
+    # with an uneven split at a cheaper size; then constant arrays of 0 and
+    # p - 1, the ends of the range a butterfly's unreduced difference spans
+    def whole_plain(x, log_n, inv, t_max):
+        # columns are independent: slices keep the plain version's int64
+        # temporaries small at the largest size
+        return torch.cat([radix_ntt.dif_whole_plain(c.contiguous(), log_n,
+                                                    inv, t_max)
+                          for c in x.split(16 if log_n > 21 else x.shape[1],
+                                           dim=1)], dim=1)
+
+    whole_shapes = [(14, 128, 11), (15, 128, 11), (15, 256, 11),
+                    (20, 128, 11), (21, 128, 11), (23, 128, 11),
+                    (14, 256, 11), (14, 2048, 11), (20, 128, 8),
+                    (16, 384, 6)]
+    for log_n, cols, t_max in whole_shapes:
         for inv in (False, True):
             x = rand_field((1 << log_n, cols))
-            if log_n == 14:  # largest digits and sums: p - 1, 0x77FFFFFF
+            if log_n == 14:  # between the random rows: p - 1, 0x77FFFFFF
                 x[::2] = P - 1
                 x[1::3] = 0x77FFFFFF
-            check("ntt_dif_whole", radix_ntt.dif_whole(x, log_n, inv),
-                  radix_ntt.dif_whole_plain(x, log_n, inv),
-                  f"({log_n}, {cols}, inverse={inv})")
-    log("ntt_dif_whole == plain at (14,128) (15,256) (20,128), fwd+inv")
+            check("ntt_dif_whole", radix_ntt.dif_whole(x, log_n, inv, t_max),
+                  whole_plain(x, log_n, inv, t_max),
+                  f"({log_n}, {cols}, inverse={inv}, t_max={t_max})")
+            del x
+    for log_n, cols in [(14, 128), (15, 128), (20, 128)]:
+        for inv in (False, True):
+            for fill in (0, P - 1):
+                x = torch.full((1 << log_n, cols), fill, dtype=torch.int32,
+                               device=dev)
+                check("ntt_dif_whole", radix_ntt.dif_whole(x, log_n, inv),
+                      radix_ntt.dif_whole_plain(x, log_n, inv),
+                      f"({log_n}, {cols}, inverse={inv}) of all {fill}")
+    log("ntt_dif_whole == plain at (log_n, cols: levels of the passes) "
+        + " ".join(
+            f"({a},{b}:"
+            f"{'+'.join(str(t) for t in radix_ntt._pass_levels(a, c))})"
+            for a, b, c in whole_shapes)
+        + ", fwd+inv; and on arrays of all 0 and all p-1 at (14,128) "
+          "(15,128) (20,128), fwd+inv")
 
     for log_n, cols in [(8, 51), (12, 32), (15, 79), (20, 51)]:
         for inv in (False, True):
@@ -390,7 +432,7 @@ def main() -> int:
         [0, P - 1, P, 2 * P - 1, 2 * P, 0xFFFFFFFF], dtype=torch.int64,
         device=dev))
     for n_words in [1, 7, 8, 9, 10, 16, 51, 128, 179]:
-        for batch in [1, 3, 2047, 1 << 16]:
+        for batch in [1, 3, 127, 128, 129, 2047, 1 << 16]:
             w = rand_words((batch, n_words))
             flat = w.view(-1)
             k = min(flat.numel(), 3 * edge.numel())
@@ -399,7 +441,7 @@ def main() -> int:
             check("poseidon2", p2.hash_words(w), p2.hash_words_plain(w),
                   f"({batch}, {n_words})")
     log("poseidon2 == plain at n_words {1,7,8,9,10,16,51,128,179} x batch "
-        "{1,3,2047,2^16}, with words 0, p-1, p, 2p-1, 2p, 2^32-1")
+        "{1,3,127,128,129,2047,2^16}, with words 0, p-1, p, 2p-1, 2p, 2^32-1")
 
     # 4. the main path: three commits, the launch counters around each.
     # Every kernel call is recorded (its input, and its output as the kernel
@@ -409,9 +451,9 @@ def main() -> int:
         "ntt_step": lambda x, d, tw, blocks, cols, rest_n:
             radix_ntt.step_plain(x, d, tw, rest_n),
         "ntt_tail": lambda x, d, blocks, cols: radix_ntt.tail_plain(x, d),
-        "ntt_dif_whole": lambda x, scratch, mats, tws, log_n, rest_n:
-            radix_ntt.dif_whole_plain(x, log_n, mats.equal(table(
-                radix_ntt._whole_tables, log_n, True, device=dev)[0])),
+        "ntt_dif_whole": lambda x, pw, log_n, rest_n, t_max:
+            radix_ntt.dif_whole_plain(x, log_n, pw.equal(table(
+                ntt._root_powers, log_n, True, device=dev)), t_max),
         "keccak256": lambda w, batch, n_words:
             keccak.keccak256_words_plain(w),
         "poseidon2": lambda w, batch, n_words: p2.hash_words_plain(w),
@@ -563,10 +605,7 @@ def main() -> int:
     # ntt_dif_whole: the LDE's forward DIF of commit (b), 2^20 x 128
     n, cols = 1 << 20, 128
     x = rand_field((n, cols))
-    k_steps = len(radix_ntt._radix_schedule(20))
-    table_bytes = k_steps * 128 * 128 * 4 + 4 * sum(
-        (1 << (ll - 7)) * 128
-        for _, ll, _, last in radix_ntt._steps(20) if not last)
+    table_bytes = ntt._root_powers(20, False).nbytes  # n/2 root powers
     report("ntt_dif_whole", lambda: radix_ntt.dif_whole(x, 20, False),
            lambda: radix_ntt.dif_whole_plain(x, 20, False),
            2 * n * cols * 4 + table_bytes, n // 2 * 20 * cols * BUTTERFLY_OPS,
@@ -628,11 +667,12 @@ def main() -> int:
     t_ntt = cuda_ms(lambda: radix_ntt.dif(x), 20) / 1e3
     t_copy = cuda_ms(lambda: x + 1, 20) / 1e3
     nbytes = n * cols * 4
-    passes = (19 + 6) // 7
-    frac = (passes * 2 * nbytes / t_ntt) / (2 * nbytes / t_copy)
+    # the array read once and written once over the transform's time, as a
+    # fraction of the stream copy's rate: whatever the kernel's passes
     log(f"NTT 2^19 x 128: {n // 2 * 19 * cols / t_ntt:.6g} butterflies/s, "
         f"{t_ntt * 1e3:.4f} ms; stream copy {2 * nbytes / t_copy / 1e9:.1f} "
-        f"GB/s; fraction of stream roofline {frac:.4f}")
+        f"GB/s; array in and out once at {2 * nbytes / t_ntt / 1e9:.1f} GB/s, "
+        f"{t_copy / t_ntt:.4f} of the stream copy")
 
     # commit (b) wall-clock, warm
     best = float("inf")
@@ -679,15 +719,15 @@ def main() -> int:
                 lambda: commit_forward(traces[(19, 128)], device="cuda"))
 
     # path (d): commit_batches of both rounds and open_multi_batches, warm
-    def best_of_3(fn):
-        best = float("inf")
-        for _ in range(3):
+    def wall_ms(fn, runs):
+        times = []
+        for _ in range(runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
-        return best * 1e3
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
 
     pcs, mats, points = (pcs_state[k] for k in ("pcs", "mats", "points"))
 
@@ -704,9 +744,14 @@ def main() -> int:
              in zip(pcs_state["rounds"], points)], challenger)
 
     log(f"pcs (d) commit_batches, both rounds, wall-clock: "
-        f"{best_of_3(commit_d):.3f} ms (best of 3)")
-    log(f"pcs (d) open_multi_batches wall-clock: {best_of_3(open_d):.3f} ms "
-        f"(best of 3)")
+        f"{min(wall_ms(commit_d, 3)):.3f} ms (best of 3)")
+    # the opening is bound by the host, whose clock spreads with its load:
+    # the median of 7 runs is read beside the best of the first 3, and the
+    # profile's device-busy time beside both
+    opens = wall_ms(open_d, 7)
+    log(f"pcs (d) open_multi_batches wall-clock: {min(opens[:3]):.3f} ms "
+        f"(best of 3), median of {len(opens)} {sorted(opens)[len(opens) // 2]:.3f}"
+        f" ms, all " + " ".join(f"{t:.3f}" for t in opens))
     profile_run("pcs (d) commit_batches", commit_d)
     profile_run("pcs (d) open_multi_batches", open_d)
 

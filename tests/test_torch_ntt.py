@@ -1,8 +1,12 @@
 """The port's NTT (valida_tpu_torch.poly.ntt, .radix_ntt) against
 valida_tpu.poly.ntt / mxu_ntt: transforms on the numpy path, the step
-tables, and the plain versions of the step, tail and whole-transform
-kernels against the reference's Pallas kernels in interpret mode.
-Exact equality throughout."""
+tables, the plain versions of the step and tail kernels against the
+reference's Pallas kernels in interpret mode, and the pass-structured plain
+version of the whole-transform kernel (its passes, row sets and twiddle
+indices are the kernel's) against the numpy stage loop.  Exact equality
+throughout."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -97,18 +101,6 @@ def test_tables_match_reference():
             for mine, theirs, args in pairs:
                 got = table(mine, *args, device="cpu")
                 assert got.equal(from_reference(theirs(*args))), (mine, args)
-            if log_n >= 14:  # the whole transform's tables, in step order
-                mats, tws = table(radix_ntt._whole_tables, log_n, inverse,
-                                  device="cpu")
-                steps = radix_ntt._steps(log_n)
-                want_mats = [mxu_ntt._tail_dft(inverse) if last else
-                             mxu_ntt._step_dft(ll, inverse, r)
-                             for _, ll, r, last in steps]
-                want_tws = [np.asarray(mxu_ntt._step_twiddles(ll, inverse, r))
-                            .reshape(-1) for _, ll, r, last in steps
-                            if not last]
-                assert mats.equal(from_reference(np.stack(want_mats)))
-                assert tws.equal(from_reference(np.concatenate(want_tws)))
         assert table(ntt.bitrev_indices, log_n, device="cpu").equal(
             from_reference(rntt.bitrev_indices(log_n).astype(np.uint32)))
         assert table(ntt.shift_powers, 31, log_n, device="cpu").equal(
@@ -163,3 +155,89 @@ def test_whole_plain_matches_numpy_path(inverse):
     x = _worst((1 << 14, 128))
     got = radix_ntt.dif_whole(from_reference(x), 14, inverse)
     np.testing.assert_array_equal(to_numpy(got), rntt.dif(x, inverse=inverse))
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_case(log_n, cols, inverse):
+    """(input tensor, the numpy stage loop's transform of it)"""
+    x = _field(1000 * log_n + cols + inverse, (1 << log_n, cols))
+    return from_reference(x), rntt.dif(x, inverse=inverse)
+
+
+@pytest.mark.parametrize("t_max", [5, 6, 7, 8, 10, 11])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n,cols", [(14, 128), (15, 128), (16, 128),
+                                        (14, 256)])
+def test_whole_plain_passes_match_numpy_path(log_n, cols, inverse, t_max):
+    """Every split into passes gives the numpy path's words: t_max 5 and 6
+    make three passes (four at log_n 16 and t_max 5), 7 two or three, 8
+    and above two; [5,5,4], [8,7] and [6,5,5] are uneven."""
+    x, want = _whole_case(log_n, cols, inverse)
+    got = radix_ntt.dif_whole(x, log_n, inverse, t_max)
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+@functools.lru_cache(maxsize=None)
+def _extreme_case(kind, inverse):
+    """(input tensor, the numpy stage loop's transform of it) at 2^14 x 128
+    for words that break an unproved lazy reduction."""
+    shape = (1 << 14, 128)
+    x = {"zeros": lambda: np.zeros(shape, np.uint32),
+         "p-1": lambda: np.full(shape, P - 1, np.uint32),
+         "worst": lambda: _worst(shape)}[kind]()
+    return from_reference(x), rntt.dif(x, inverse=inverse)
+
+
+@pytest.mark.parametrize("t_max", [5, 7, 11])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind", ["zeros", "p-1", "worst"])
+def test_whole_plain_passes_extreme_words(kind, inverse, t_max):
+    """Arrays of all 0, all p - 1, and p - 1 and 0x77FFFFFF between random
+    rows go through every pass structure word for word, as the kernel's
+    check on the card runs them."""
+    x, want = _extreme_case(kind, inverse)
+    got = radix_ntt.dif_whole(x, 14, inverse, t_max)
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("log_n,t_max,want", [
+    (14, 11, [7, 7]), (15, 11, [8, 7]), (19, 11, [10, 9]), (20, 11, [10, 10]),
+    (21, 11, [11, 10]), (22, 11, [11, 11]), (23, 11, [8, 8, 7]),
+    (14, 5, [5, 5, 4]), (16, 6, [6, 5, 5]), (20, 8, [7, 7, 6]), (9, 11, [9])])
+def test_pass_levels(log_n, t_max, want):
+    got = radix_ntt._pass_levels(log_n, t_max)
+    assert got == want
+    assert sum(got) == log_n and max(got) <= t_max
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n,t_max", [(14, 11), (15, 11), (16, 6), (12, 5)])
+def test_pass_twiddles_are_the_root_powers(log_n, t_max, inverse):
+    """The table the kernel reads is the reference's _root_powers, and the
+    pass's index formula picks w^((j mod h) << s) for the global row j of
+    tile row i in the row set `low`: j = i * S + low (+ hi << (log_n - s0),
+    which j mod h drops), h = n >> (s + 1), s = s0 + lv."""
+    pw = table(ntt._root_powers, log_n, inverse, device="cpu")
+    assert pw.equal(from_reference(rntt._root_powers(log_n, inverse)))
+    w = rbb.two_adic_generator(log_n)
+    if inverse:
+        w = rbb.h_inv(w)
+    rng = np.random.default_rng(log_n)
+    s0 = 0
+    for t in radix_ntt._pass_levels(log_n, t_max):
+        stride = 1 << (log_n - s0 - t)
+        for lv in range(t):
+            idx = radix_ntt._pass_twiddle_index(log_n, s0, t, lv, "cpu")
+            hl = 1 << (t - 1 - lv)
+            assert tuple(idx.shape) == (hl, stride)
+            assert int(idx.max()) < 1 << (log_n - 1)
+            s = s0 + lv
+            h = (1 << log_n) >> (s + 1)
+            for _ in range(8):
+                i = int(rng.integers(0, 1 << t))
+                low = int(rng.integers(0, stride))
+                j = i * stride + low
+                e = int(idx[i % hl, low])
+                assert e == (j % h) << s
+                assert int(pw[e]) == pow(w, e, P) * (1 << 32) % P
+        s0 += t

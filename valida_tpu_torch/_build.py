@@ -33,7 +33,7 @@ SIGNATURES = {
     "ntt": {
         "ntt_step_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
         "ntt_tail_launch": [_P, _P, _P, _I, _I, _P],
-        "ntt_dif_whole_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "ntt_dif_whole_launch": [_P, _P, _P, _I, _I, _I, _P],
     },
     "keccak": {
         "keccak256_launch": [_P, _P, _I, _I, _P],

@@ -10,21 +10,31 @@
 // the TPU has no 64-bit integers and no dynamic loads.  Here one thread
 // hashes one message: the 16 state words live in registers in Montgomery
 // form, a Montgomery product is one native 32x32->64 multiply and two
-// 32-bit ones, the rounds are fully unrolled so every round constant is a
-// constant-memory operand, and the absorb loop runs over ceil(n_words / 8)
-// blocks with the short last block read as zeros (absorbing 0 is the
-// identity).  Device memory sees one read of the message and one write of
-// the digest.
+// 32-bit ones, and the absorb loop runs over ceil(n_words / 8) blocks with
+// the short last block read as zeros (absorbing 0 is the identity).  Device
+// memory sees one read of the message and one write of the digest.
 //
-// What bounds it: the integer units.  A permutation is 772 dependent
-// Montgomery products (8 x 16 x 4 external, 13 x (4 + 16) internal) and
-// 1,336 modular additions for 32 bytes of input, far above the card's
-// ratio of integer operations to memory bytes; the compiler fuses each
-// conditional subtraction into one add-minimum instruction.  The design
-// keeps the whole state in registers (39 a thread, so the SMs stay fully
-// occupied) and touches memory only to read the message and write the
-// digest.  Neighbouring threads read rows n_words apart, which does not
-// coalesce; staging rows through shared memory is left to a later change.
+// What bounds it: the rate at which the integer pipes take instructions, and
+// before that instruction fetch.  A permutation is 772 dependent products
+// (8 x 16 x 4 external, 13 x (4 + 16) internal) and some 1,200 modular
+// additions for 32 bytes of input; measured on an H100 (NVIDIA H100 80GB
+// HBM3, 700 W), the same kernel with its loads removed takes 99% of the
+// time, its loads alone 7%, and the SM clock stays at its maximum.  With
+// every round unrolled the loop body was 7,880 instructions (126 KB), far
+// beyond the instruction caches, and ran at half the dispatch rate whatever
+// the occupancy or the number of messages a thread interleaved.  So the
+// design is about the instruction stream:
+//   * the rounds are loops (one external-round body for both halves, one
+//     internal-round body), about 1,000 instructions in all, with the round
+//     constants read from constant memory by round index;
+//   * the conditional correction of a Montgomery product is a minimum, not
+//     a compare and a predicated add; M4 takes 11 additions, not 15; a word
+//     is absorbed by the Montgomery product that also reduces it mod p;
+//   * a modular addition stays two instructions (add, fused
+//     subtract-minimum): p is so close to 2^31 that three unreduced words
+//     do not fit 32 bits, so sums cannot be carried lazily.
+// The strided row reads (thread i reads 32 bytes at stride n_words * 4)
+// hide behind the arithmetic and are left as they are.
 //
 // The round constants and the diagonal are derived on the host (SHA-256
 // expansion, crypto/poseidon2.py) and uploaded once in Montgomery form by
@@ -57,14 +67,17 @@ __device__ __forceinline__ uint32_t addp(uint32_t a, uint32_t b) {
   return min(s, s - P);  // s - P wraps above s exactly when s < P
 }
 
-// Montgomery product a * b * 2^-32 mod p for a, b < p
+// Montgomery product a * b * 2^-32 mod p, in [0, p), for any a, b with
+// a * b < 2^32 * p: both below p, or any u32 a with b < p.  Then
+// hi = t >> 32 < p and u < p; the low halves of t and m * P are equal, so
+// (t - m * P) / 2^32 = hi - u exactly, in (-p, p).  A negative difference
+// wraps, and adding P wraps it back below itself; a non-negative one only
+// grows (r + P < 2^32), so the minimum is the reduced value.
 __device__ __forceinline__ uint32_t mulp(uint32_t a, uint32_t b) {
   const uint64_t t = (uint64_t)a * b;
   const uint32_t m = (uint32_t)t * MU;
-  const uint32_t u = __umulhi(m, P);
-  const uint32_t hi = (uint32_t)(t >> 32);
-  const uint32_t r = hi - u;
-  return hi < u ? r + P : r;
+  const uint32_t r = (uint32_t)(t >> 32) - __umulhi(m, P);
+  return min(r, r + P);
 }
 
 __device__ __forceinline__ uint32_t sbox7(uint32_t x) {
@@ -75,21 +88,25 @@ __device__ __forceinline__ uint32_t sbox7(uint32_t x) {
 
 // circ(2*M4, M4, M4, M4): M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]] on
 // each block of four lanes, then every lane gains the sum over the blocks.
+// M4 in 11 additions: with a = x0 + x1, b = x2 + x3, t = a + b,
+// u = t + x1 and v = t + x3, the rows are u + a, u + 2 x2, v + b, v + 2 x0.
 __device__ __forceinline__ void external_linear(uint32_t s[WIDTH]) {
 #pragma unroll
-  for (int b = 0; b < WIDTH; b += 4) {
-    const uint32_t x0 = s[b], x1 = s[b + 1], x2 = s[b + 2], x3 = s[b + 3];
-    const uint32_t t = addp(addp(x0, x1), addp(x2, x3));
-    s[b] = addp(addp(t, x0), addp(x1, x1));      // 2 x0 + 3 x1 + x2 + x3
-    s[b + 1] = addp(addp(t, x1), addp(x2, x2));  // x0 + 2 x1 + 3 x2 + x3
-    s[b + 2] = addp(addp(t, x2), addp(x3, x3));  // x0 + x1 + 2 x2 + 3 x3
-    s[b + 3] = addp(addp(t, x3), addp(x0, x0));  // 3 x0 + x1 + x2 + 2 x3
+  for (int k = 0; k < WIDTH; k += 4) {
+    const uint32_t x0 = s[k], x1 = s[k + 1], x2 = s[k + 2], x3 = s[k + 3];
+    const uint32_t a = addp(x0, x1), b = addp(x2, x3);
+    const uint32_t t = addp(a, b);
+    const uint32_t u = addp(t, x1), v = addp(t, x3);
+    s[k] = addp(u, a);                 // 2 x0 + 3 x1 + x2 + x3
+    s[k + 1] = addp(u, addp(x2, x2));  // x0 + 2 x1 + 3 x2 + x3
+    s[k + 2] = addp(v, b);             // x0 + x1 + 2 x2 + 3 x3
+    s[k + 3] = addp(v, addp(x0, x0));  // 3 x0 + x1 + x2 + 2 x3
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const uint32_t total = addp(addp(s[i], s[4 + i]), addp(s[8 + i], s[12 + i]));
 #pragma unroll
-    for (int b = 0; b < WIDTH; b += 4) s[b + i] = addp(s[b + i], total);
+    for (int k = 0; k < WIDTH; k += 4) s[k + i] = addp(s[k + i], total);
   }
 }
 
@@ -99,11 +116,8 @@ __device__ __forceinline__ void external_round(uint32_t s[WIDTH], int r) {
   external_linear(s);
 }
 
-__device__ __forceinline__ void permute(uint32_t s[WIDTH]) {
-  external_linear(s);
-#pragma unroll
-  for (int r = 0; r < HALF_EXTERNAL; ++r) external_round(s, r);
-#pragma unroll
+__device__ __forceinline__ void internal_rounds(uint32_t s[WIDTH]) {
+#pragma unroll 1
   for (int r = 0; r < INTERNAL; ++r) {
     s[0] = sbox7(addp(s[0], C[INT_C + r]));
     uint32_t t[WIDTH / 2];
@@ -115,11 +129,25 @@ __device__ __forceinline__ void permute(uint32_t s[WIDTH]) {
 #pragma unroll
     for (int i = 0; i < WIDTH; ++i) s[i] = addp(mulp(s[i], C[DIAG + i]), total);
   }
-#pragma unroll
-  for (int r = HALF_EXTERNAL; r < 2 * HALF_EXTERNAL; ++r) external_round(s, r);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The rounds stay loops, and both halves of the external rounds share one
+// loop body: the code has to fit the instruction caches (see the head of
+// this file).
+__device__ __forceinline__ void permute(uint32_t s[WIDTH]) {
+  external_linear(s);
+#pragma unroll 1
+  for (int r = 0; r < 2 * HALF_EXTERNAL; ++r) {
+    if (r == HALF_EXTERNAL) internal_rounds(s);
+    external_round(s, r);
+  }
+}
+
+// Stating a minimum of one block an SM makes ptxas schedule with 44
+// registers a thread instead of 32; the longer reach of its scheduling is
+// worth more than the warps it costs (40 an SM instead of 64): 5.39 against
+// 5.95 ms at 2^20 x 128 on an NVIDIA H100 80GB HBM3 at 700 W.
+__global__ void __launch_bounds__(THREADS, 1)
 poseidon2_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
                  int batch, int n_words) {
   const int msg = blockIdx.x * THREADS + threadIdx.x;
@@ -132,11 +160,10 @@ poseidon2_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
   for (int base = 0; base < n_words; base += RATE) {
 #pragma unroll
     for (int i = 0; i < RATE; ++i) {
-      uint32_t w = base + i < n_words ? row[base + i] : 0u;
-      // any u32 mod p: 2p < 2^32 < 3p, so two conditional subtractions
-      w = w >= P ? w - P : w;
-      w = w >= P ? w - P : w;
-      s[i] = addp(s[i], mulp(w, R2));  // to Montgomery form, absorb
+      const uint32_t w = base + i < n_words ? row[base + i] : 0u;
+      // any u32 w: w * R2 < 2^32 * p, so the product is w * 2^32 mod p,
+      // reduced: to Montgomery form and mod p in one step; then absorb
+      s[i] = addp(s[i], mulp(w, R2));
     }
     permute(s);
   }

@@ -7,8 +7,8 @@ Counterpart of valida_tpu/poly/ntt.py, with its conventions:
 * no 1/N scaling inside dif/dit.
 
 A CUDA tensor with at least 128 rows goes through the hand-written
-radix-128 kernels of poly/radix_ntt.py (as the reference routes device
-arrays to poly/mxu_ntt.py).  Everything else runs the plain stage loop
+kernels of poly/radix_ntt.py (as the reference routes device arrays to
+poly/mxu_ntt.py).  Everything else runs the plain stage loop
 below, two butterfly levels per pass, bit-identical to the reference's.
 The elementwise passes (coset shift, 1/N scaling, bit-reversal gather)
 stay plain PyTorch, as the reference leaves them to XLA.

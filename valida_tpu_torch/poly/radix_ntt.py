@@ -1,27 +1,42 @@
-"""Radix-128 four-step NTT: the DIF as exact modular [128,128] products.
+"""The device NTT: natural-in, bitrev-out DIF over axis 0, as kernels.
 
 Counterpart of valida_tpu/poly/mxu_ntt.py (named for the TPU's matrix unit,
-which the H100 lacks).  Same algorithm and tables: up to 7 butterfly levels
-run at once as a 128-point DFT product along axis 0, by the four-step
-identity
+which the H100 lacks).  Outputs are bit-identical to poly/ntt.dif.
+
+`dif_whole` -> ntt_dif_whole (replaces mxu_ntt._mega_pallas), for the
+widths the reference sends to its whole-transform kernel (`_mega_supported`).
+Radix-2 butterflies in shared memory: level s pairs row j with row j + h,
+h = n >> (s+1), in place, and multiplies the difference by
+pw[(j mod h) << s], pw = ntt._root_powers.  The log_n levels are split
+into the fewest passes of at most `T_MAX` (`_pass_levels`).  A pass over
+levels s0 .. s0+T-1 cuts the rows into row sets
+(hi << (log_n-s0)) + i·S + low, i < 2^T, S = 2^(log_n-s0-T), which those
+levels pair among themselves; a tile (a row set's 2^T rows x a few columns,
+64 KB) is loaded into shared memory once, all T levels run there, and it
+is written back once, so every word crosses device memory twice a pass
+and the butterflies cost 8 integer instructions each.  The first pass reads
+the input and writes the output, the later ones run in place: no scratch.
+`dif_whole_plain` follows the same passes, row sets and twiddle index
+formula (`_pass_twiddle_index`), so a CPU test catches an indexing error.
+
+`step` -> ntt_step (replaces mxu_ntt._step_pallas) and `tail` -> ntt_tail
+(replaces mxu_ntt._tail_pallas) serve the other widths with the
+reference's radix-128 four-step scheme and its tables: up to 7 butterfly
+levels at once as a 128-point DFT product along axis 0, by the identity
 
     X[u + B·v] = DFT_M( w^{u·t} · Σ_i (w^M)^{u·i} x[i·M + t] )[v]
 
-(`w` the order-L root, B = 128, M = L/B): one [128,128] modular product,
-a pointwise twiddle, and a bit-reversal of the output rows folded into
-the matrix, then recursion on the M-point blocks.  The log2(N) mod 7
-remainder step comes first, so the last (M = 1) step is always a full
-128-point transform without twiddle.  Outputs are bit-identical to
-poly/ntt.dif.
+(`w` the order-L root, B = 128, M = L/B): one exact [128,128] modular
+product (128 wide multiply-adds per word on the CUDA cores, which is what
+bounds these two), a pointwise twiddle, and a bit-reversal of the output
+rows folded into the matrix, then recursion on the M-point blocks.  The
+log2(N) mod 7 remainder step comes first, so the last (M = 1) step is
+always a full 128-point transform without twiddle.
 
-Kernels (csrc/ntt.cu), each beside its plain PyTorch version:
-* `step`  -> ntt_step       (replaces mxu_ntt._step_pallas)
-* `tail`  -> ntt_tail       (replaces mxu_ntt._tail_pallas)
-* `dif_whole` -> ntt_dif_whole (replaces mxu_ntt._mega_pallas): every
-  step in one cooperative launch.
-A CPU tensor runs the plain version; a CUDA tensor runs the kernel.
-The reference's lane padding to a multiple of 8 (a Mosaic tile rule) is
-gone: the kernels mask the ragged column edge themselves.
+Each kernel (csrc/ntt.cu) stands beside its plain PyTorch version.  A CPU
+tensor runs the plain version; a CUDA tensor runs the kernel.  The
+reference's lane padding to a multiple of 8 (a Mosaic tile rule) is gone:
+the step kernels mask the ragged column edge themselves.
 """
 
 from __future__ import annotations
@@ -37,6 +52,7 @@ from ..field import babybear as bb
 
 B = 128
 LOG_B = 7
+T_MAX = 11  # most butterfly levels of one pass of the whole-transform kernel
 
 # ---------------------------------------------------------------------------
 # Host tables (own copies of the reference's, cached per shape)
@@ -132,18 +148,27 @@ def _steps(log_n: int):
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _whole_tables(log_n: int, inverse: bool):
-    """The whole transform's tables, concatenated in step order:
-    matrices [k, 128, 128] and the non-final steps' twiddles, flat."""
-    mats, tws = [], []
-    for _, log_len, radix_log, last in _steps(log_n):
-        if last:
-            mats.append(_tail_dft(inverse))
-        else:
-            mats.append(_step_dft(log_len, inverse, radix_log))
-            tws.append(_step_twiddles(log_len, inverse, radix_log).reshape(-1))
-    return np.stack(mats), np.concatenate(tws)
+def _pass_levels(log_n: int, t_max: int = T_MAX) -> list:
+    """Level counts of the whole-transform kernel's passes: the fewest
+    passes of at most t_max levels, as even as they go, the larger first
+    (csrc/ntt.cu::ntt_dif_whole_launch computes the same split)."""
+    k = -(-log_n // t_max)
+    base, extra = divmod(log_n, k)
+    return [base + 1] * extra + [base] * (k - extra)
+
+
+def _pass_twiddle_index(log_n: int, s0: int, t: int, lv: int,
+                        device) -> torch.Tensor:
+    """Indices [2^(t-1-lv), S] into ntt._root_powers for local level lv of
+    the pass over levels s0 .. s0+t-1, S = 2^(log_n-s0-t) its row stride:
+    the row set with offset `low` multiplies the difference of its tile
+    rows i and i + hl, hl = 2^(t-1-lv), by entry ((i mod hl)·S + low) <<
+    (s0+lv), the kernel's formula.  It is (j mod h) << s of the whole
+    transform's level s = s0+lv, h = hl·S, for the global row j."""
+    stride = 1 << (log_n - s0 - t)
+    k = torch.arange(1 << (t - 1 - lv), device=device)[:, None]
+    low = torch.arange(stride, device=device)[None, :]
+    return (k * stride + low) << (s0 + lv)
 
 
 # ---------------------------------------------------------------------------
@@ -187,9 +212,28 @@ def tail_plain(x3: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return _mod_matmul_plain(d, x3).to(torch.int32)
 
 
-def dif_whole_plain(a: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
-    """Plain version of the whole-transform kernel: a [n, rest_n]."""
-    return _run_steps(a, log_n, inverse, step_plain, tail_plain)
+def dif_whole_plain(a: torch.Tensor, log_n: int, inverse: bool,
+                    t_max: int = T_MAX) -> torch.Tensor:
+    """Plain version of the whole-transform kernel, pass by pass as the
+    kernel runs them: a [n, rest_n]."""
+    from .ntt import _root_powers
+
+    n, rest_n = a.shape
+    pw = table(_root_powers, log_n, inverse, device=a.device)
+    s0 = 0
+    for t in _pass_levels(log_n, t_max):
+        stride = 1 << (log_n - s0 - t)
+        for lv in range(t):
+            hl = 1 << (t - 1 - lv)
+            tw = pw[_pass_twiddle_index(log_n, s0, t, lv, a.device)]
+            # [hi, tile rows as (block, half, i mod hl), low, columns]
+            x = a.reshape(1 << s0, 1 << lv, 2, hl, stride, rest_n)
+            x0, x1 = x[:, :, 0], x[:, :, 1]
+            lo = bb.add(x0, x1)
+            hi = bb.mul(bb.sub(x0, x1), tw[:, :, None])
+            a = torch.stack([lo, hi], dim=2).reshape(n, rest_n)
+        s0 += t
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -223,17 +267,24 @@ def tail(x3: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def dif_whole(a: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
-    """The whole DIF of a [n, rest_n] in one launch."""
+def dif_whole(a: torch.Tensor, log_n: int, inverse: bool,
+              t_max: int = T_MAX) -> torch.Tensor:
+    """The whole DIF of a [n, rest_n], rest_n a multiple of 128, through
+    one call of the kernel's entry (a launch per pass)."""
     if a.device.type == "cpu":
-        return dif_whole_plain(a, log_n, inverse)
+        return dif_whole_plain(a, log_n, inverse, t_max)
+    from .ntt import _root_powers
+
     rest_n = a.shape[1]
     _build.check_input(a, "ntt_dif_whole x", (1 << log_n, rest_n))
-    mats, tws = table(_whole_tables, log_n, inverse, device=a.device)
+    if rest_n % 128 or not 1 <= t_max <= T_MAX or a.data_ptr() % 16:
+        raise ValueError("ntt_dif_whole: expected a 16-byte aligned array "
+                         f"whose width is a multiple of 128 and 1 <= t_max "
+                         f"<= {T_MAX}, got width {rest_n}, t_max {t_max}")
+    pw = table(_root_powers, log_n, inverse, device=a.device)
     out = torch.empty_like(a)
-    scratch = torch.empty_like(a)
-    _build.launch("ntt", "ntt_dif_whole_launch", a, out, scratch, mats, tws,
-                  log_n, rest_n)
+    _build.launch("ntt", "ntt_dif_whole_launch", a, out, pw, log_n, rest_n,
+                  t_max)
     _build.LAUNCHES["ntt_dif_whole"] += 1
     return out
 
