@@ -8,9 +8,10 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
 1. prints the card's name and power limit;
 2. builds every kernel (one nvcc per source, in parallel) and times it;
 3. compares each kernel with its plain version on the card, word for word:
-   ntt_dif_whole (two and three passes, even and uneven splits, constant
-   arrays of 0 and p - 1), ntt_step, ntt_tail, keccak256 and poseidon2 at
-   the listed shapes;
+   ntt_dif_whole (one, two and three passes, even and uneven splits,
+   constant arrays of 0 and p - 1), ntt_dif_ragged (the same, at ragged
+   widths from 1 to 200 columns), keccak256 and poseidon2 at the listed
+   shapes;
 4. runs three commits through `commit_forward`, each with the launch
    counters set to 0 just before it and read just after, requires every
    kernel of that path to have launched, records every kernel call of the
@@ -28,8 +29,8 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    (d') the same at 2^16 x 128, 2^13 x 51 and 2^16 x 10,
    (e) (d')'s shape with Keccak trees;
 5. times each kernel at the main path's shapes with CUDA events, beside its
-   bound and its plain version, and times the commits, the NTT and the
-   opening, with a profile of commit (b) and of (d)'s opening;
+   bound and its plain version, and times commits (b) and (c), the NTT and
+   (d)'s commit and opening, each with a profile;
 6. prints one JSON line of kernels, then the device line last.
 Any mismatch, build failure or launch error raises: the exit code is then
 non-zero and the last line is not printed.  With no GPU it exits 1.
@@ -106,9 +107,9 @@ TRACE_SUMS = {(12, 32): 131840869016140, (19, 128): 67547734501292161,
 
 # the commits of the main path: (log_n, cols) and the kernels each must run
 PATHS = {
-    "a": ((12, 32), ("ntt_step", "ntt_tail", "keccak256")),
+    "a": ((12, 32), ("ntt_dif_ragged", "keccak256")),
     "b": ((19, 128), ("ntt_dif_whole", "keccak256")),
-    "c": ((19, 51), ("ntt_step", "ntt_tail", "keccak256")),
+    "c": ((19, 51), ("ntt_dif_ragged", "keccak256")),
 }
 
 # the PCS proofs of the main path: (log_n, cols) of the three committed
@@ -116,13 +117,13 @@ PATHS = {
 # hasher, and the kernels each must and must not launch
 PCS_PATHS = {
     "d": (((19, 128), (16, 51), (19, 10)), "poseidon2",
-          ("poseidon2", "ntt_dif_whole", "ntt_step", "ntt_tail"),
+          ("poseidon2", "ntt_dif_whole", "ntt_dif_ragged"),
           ("keccak256",)),
     "d'": (((16, 128), (13, 51), (16, 10)), "poseidon2",
-           ("poseidon2", "ntt_dif_whole", "ntt_step", "ntt_tail"),
+           ("poseidon2", "ntt_dif_whole", "ntt_dif_ragged"),
            ("keccak256",)),
     "e": (((16, 128), (13, 51), (16, 10)), "keccak",
-          ("keccak256", "ntt_dif_whole", "ntt_step", "ntt_tail"),
+          ("keccak256", "ntt_dif_whole", "ntt_dif_ragged"),
           ("poseidon2",)),
 }
 # the opening point, an element of the degree-5 extension
@@ -244,10 +245,9 @@ SOURCES = {
                   "valida_tpu/crypto/poseidon2.py:229"),
     "ntt_dif_whole": ("valida_tpu_torch/csrc/ntt.cu",
                       "valida_tpu/poly/mxu_ntt.py:463"),
-    "ntt_step": ("valida_tpu_torch/csrc/ntt.cu",
-                 "valida_tpu/poly/mxu_ntt.py:353"),
-    "ntt_tail": ("valida_tpu_torch/csrc/ntt.cu",
-                 "valida_tpu/poly/mxu_ntt.py:397"),
+    "ntt_dif_ragged": ("valida_tpu_torch/csrc/ntt.cu",
+                       "valida_tpu/poly/mxu_ntt.py:353, "
+                       "valida_tpu/poly/mxu_ntt.py:397"),
     "keccak256": ("valida_tpu_torch/csrc/keccak.cu",
                   "valida_tpu/crypto/keccak.py:212"),
 }
@@ -348,77 +348,73 @@ def main() -> int:
             raise RuntimeError(f"{name} differs from its plain version at "
                                f"{what}: max |diff| = {e}")
 
-    # ntt_dif_whole: the smallest size, uneven splits (15, 21), the main
-    # path's size, three passes (23), the widest rows; then three passes
-    # with an uneven split at a cheaper size; then constant arrays of 0 and
-    # p - 1, the ends of the range a butterfly's unreduced difference spans
-    def whole_plain(x, log_n, inv, t_max):
+    # the two pass kernels against their one plain version: the smallest
+    # sizes, uneven splits, the main path's sizes, three passes, the widest
+    # rows; then three passes with an uneven split at a cheaper size; then
+    # constant arrays of 0 and p - 1, the ends of the range a butterfly's
+    # unreduced difference spans
+    def passes_plain(x, log_n, inv, t_max):
         # columns are independent: slices keep the plain version's int64
         # temporaries small at the largest size
-        return torch.cat([radix_ntt.dif_whole_plain(c.contiguous(), log_n,
-                                                    inv, t_max)
+        return torch.cat([radix_ntt.dif_passes_plain(c.contiguous(), log_n,
+                                                     inv, t_max)
                           for c in x.split(16 if log_n > 21 else x.shape[1],
                                            dim=1)], dim=1)
 
-    whole_shapes = [(14, 128, 11), (15, 128, 11), (15, 256, 11),
-                    (20, 128, 11), (21, 128, 11), (23, 128, 11),
-                    (14, 256, 11), (14, 2048, 11), (20, 128, 8),
-                    (16, 384, 6)]
-    for log_n, cols, t_max in whole_shapes:
-        for inv in (False, True):
-            x = rand_field((1 << log_n, cols))
-            if log_n == 14:  # between the random rows: p - 1, 0x77FFFFFF
-                x[::2] = P - 1
-                x[1::3] = 0x77FFFFFF
-            check("ntt_dif_whole", radix_ntt.dif_whole(x, log_n, inv, t_max),
-                  whole_plain(x, log_n, inv, t_max),
-                  f"({log_n}, {cols}, inverse={inv}, t_max={t_max})")
-            del x
-    for log_n, cols in [(14, 128), (15, 128), (20, 128)]:
-        for inv in (False, True):
-            for fill in (0, P - 1):
-                x = torch.full((1 << log_n, cols), fill, dtype=torch.int32,
-                               device=dev)
-                check("ntt_dif_whole", radix_ntt.dif_whole(x, log_n, inv),
-                      radix_ntt.dif_whole_plain(x, log_n, inv),
-                      f"({log_n}, {cols}, inverse={inv}) of all {fill}")
-    log("ntt_dif_whole == plain at (log_n, cols: levels of the passes) "
-        + " ".join(
-            f"({a},{b}:"
-            f"{'+'.join(str(t) for t in radix_ntt._pass_levels(a, c))})"
-            for a, b, c in whole_shapes)
-        + ", fwd+inv; and on arrays of all 0 and all p-1 at (14,128) "
-          "(15,128) (20,128), fwd+inv")
+    def check_passes(name, fn, shapes, fills):
+        for log_n, cols, t_max in shapes:
+            for inv in (False, True):
+                x = rand_field((1 << log_n, cols))
+                if log_n == 14:  # between the random rows: p - 1, 0x77FFFFFF
+                    x[::2] = P - 1
+                    x[1::3] = 0x77FFFFFF
+                check(name, fn(x, log_n, inv, t_max),
+                      passes_plain(x, log_n, inv, t_max),
+                      f"({log_n}, {cols}, inverse={inv}, t_max={t_max})")
+                del x
+        for log_n, cols in fills:
+            for inv in (False, True):
+                for fill in (0, P - 1):
+                    x = torch.full((1 << log_n, cols), fill,
+                                   dtype=torch.int32, device=dev)
+                    check(name, fn(x, log_n, inv, 11),
+                          radix_ntt.dif_passes_plain(x, log_n, inv),
+                          f"({log_n}, {cols}, inverse={inv}) of all {fill}")
+        log(f"{name} == plain at (log_n, cols: levels of the passes) "
+            + " ".join(
+                f"({a},{b}:"
+                f"{'+'.join(str(t) for t in radix_ntt._pass_levels(a, c))})"
+                for a, b, c in shapes)
+            + ", fwd+inv, rows of p-1 and 0x77FFFFFF at log_n 14; and on "
+              "arrays of all 0 and all p-1 at "
+            + " ".join(f"({a},{b})" for a, b in fills) + ", fwd+inv")
 
-    for log_n, cols in [(8, 51), (12, 32), (15, 79), (20, 51)]:
-        for inv in (False, True):
-            x = rand_field((1 << log_n, cols))
-            a = x
-            for blocks, log_len, radix_log, last in radix_ntt._steps(log_n):
-                if last:
-                    x3 = a.reshape(blocks, 128, cols)
-                    d = table(radix_ntt._tail_dft, inv, device=dev)
-                    got = radix_ntt.tail(x3, d)
-                    check("ntt_tail", got, radix_ntt.tail_plain(x3, d),
-                          f"({log_n}, {cols}, inverse={inv})")
-                else:
-                    m4 = 1 << (log_len - 7)
-                    x3 = a.reshape(blocks, 128, m4 * cols)
-                    d = table(radix_ntt._step_dft, log_len, inv, radix_log,
-                              device=dev)
-                    tw = table(radix_ntt._step_twiddles, log_len, inv,
-                               radix_log, device=dev)
-                    got = radix_ntt.step(x3, d, tw, cols)
-                    check("ntt_step", got,
-                          radix_ntt.step_plain(x3, d, tw, cols),
-                          f"({log_n}, {cols}, inverse={inv}, log_len "
-                          f"{log_len})")
-                a = got.reshape(1 << log_n, cols)
-            want = radix_ntt.dif_plain(x, inv)
-            if err(radix_ntt.dif(x, inv), want) or err(a, want):
-                raise RuntimeError(f"dif differs at ({log_n}, {cols})")
-    log("ntt_step, ntt_tail == plain through dif at (8,51) (12,32) (15,79) "
-        "(20,51), fwd+inv")
+    check_passes("ntt_dif_whole", radix_ntt.dif_whole,
+                 [(7, 128, 11), (10, 128, 11), (13, 128, 11), (14, 128, 11),
+                  (15, 128, 11), (15, 256, 11), (20, 128, 11), (21, 128, 11),
+                  (23, 128, 11), (14, 256, 11), (14, 2048, 11),
+                  (14, 4096, 11), (20, 128, 8), (16, 384, 6)],
+                 [(14, 128), (15, 128), (20, 128)])
+    # ntt_dif_ragged: the paths' widths at the ends of their sizes (2^12 and
+    # 2^13 x 32; 2^13 to 2^20 x 51; 2^16 to 2^20 x 10; step 4 holds every
+    # call of the paths), odd widths from 1 to 200 columns, and three uneven
+    # passes
+    check_passes("ntt_dif_ragged", radix_ntt.dif_ragged,
+                 [(8, 51, 11), (12, 32, 11), (13, 32, 11), (15, 79, 11),
+                  (17, 51, 11), (20, 51, 11), (20, 10, 11), (21, 51, 11),
+                  (14, 1, 11), (14, 3, 11), (14, 10, 11), (14, 127, 11),
+                  (14, 129, 11), (14, 200, 11), (20, 51, 8), (16, 79, 6)],
+                 [(14, 51), (20, 51), (20, 10)])
+    splits = []
+    for log_n, cols in [(12, 32), (16, 51), (19, 51), (20, 51), (20, 10)]:
+        levels = radix_ntt._pass_levels(
+            log_n, radix_ntt._ragged_t_max(log_n, cols))
+        groups = radix_ntt._column_groups(cols, levels[0])
+        splits.append(f"2^{log_n} x {cols}: levels "
+                      f"{'+'.join(map(str, levels))}, column groups "
+                      f"{'+'.join(str(w) for _, w in groups)}")
+    log("ntt_dif_ragged on the paths (first pass's groups): "
+        + "; ".join(splits))
 
     for n_words in [1, 8, 16, 32, 33, 34, 35, 51, 68, 128]:
         for batch in [1, 3, 2047, 1 << 16]:
@@ -448,11 +444,11 @@ def main() -> int:
     # left it) and then held against the plain version on the same input.
     # the C entries' arguments after (input, output), to the plain version
     plain_of = {
-        "ntt_step": lambda x, d, tw, blocks, cols, rest_n:
-            radix_ntt.step_plain(x, d, tw, rest_n),
-        "ntt_tail": lambda x, d, blocks, cols: radix_ntt.tail_plain(x, d),
         "ntt_dif_whole": lambda x, pw, log_n, rest_n, t_max:
-            radix_ntt.dif_whole_plain(x, log_n, pw.equal(table(
+            radix_ntt.dif_passes_plain(x, log_n, pw.equal(table(
+                ntt._root_powers, log_n, True, device=dev)), t_max),
+        "ntt_dif_ragged": lambda x, pw, log_n, rest_n, t_max:
+            radix_ntt.dif_passes_plain(x, log_n, pw.equal(table(
                 ntt._root_powers, log_n, True, device=dev)), t_max),
         "keccak256": lambda w, batch, n_words:
             keccak.keccak256_words_plain(w),
@@ -607,29 +603,28 @@ def main() -> int:
     x = rand_field((n, cols))
     table_bytes = ntt._root_powers(20, False).nbytes  # n/2 root powers
     report("ntt_dif_whole", lambda: radix_ntt.dif_whole(x, 20, False),
-           lambda: radix_ntt.dif_whole_plain(x, 20, False),
+           lambda: radix_ntt.dif_passes_plain(x, 20, False),
            2 * n * cols * 4 + table_bytes, n // 2 * 20 * cols * BUTTERFLY_OPS,
            10, 2)
 
-    # ntt_step / ntt_tail: the forward DIF of commit (c), 2^20 x 51
+    # ntt_dif_ragged: the forward DIF of commit (c), 2^20 x 51, and of (d)'s
+    # second round, 2^20 x 10
     cols = 51
-    steps = radix_ntt._steps(20)
-    blocks, log_len, radix_log, _ = steps[0]
-    m4 = 1 << (log_len - 7)
-    x3 = rand_field((blocks, 128, m4 * cols))
-    d = table(radix_ntt._step_dft, log_len, False, radix_log, device=dev)
-    tw = table(radix_ntt._step_twiddles, log_len, False, radix_log, device=dev)
-    report("ntt_step", lambda: radix_ntt.step(x3, d, tw, cols),
-           lambda: radix_ntt.step_plain(x3, d, tw, cols),
-           2 * n * cols * 4 + 128 * 128 * 4 + m4 * 128 * 4,
-           n // 2 * radix_log * cols * BUTTERFLY_OPS, 10, 2)
-    blocks = steps[-1][0]
-    x3 = rand_field((blocks, 128, cols))
-    d = table(radix_ntt._tail_dft, False, device=dev)
-    report("ntt_tail", lambda: radix_ntt.tail(x3, d),
-           lambda: radix_ntt.tail_plain(x3, d),
-           2 * n * cols * 4 + 128 * 128 * 4,
-           n // 2 * 7 * cols * BUTTERFLY_OPS, 10, 2)
+    x = rand_field((n, cols))
+    report("ntt_dif_ragged", lambda: radix_ntt.dif_ragged(x, 20, False),
+           lambda: radix_ntt.dif_passes_plain(x, 20, False),
+           2 * n * cols * 4 + table_bytes, n // 2 * 20 * cols * BUTTERFLY_OPS,
+           10, 2)
+    cols = 10
+    x = rand_field((n, cols))
+    ms10 = cuda_ms(lambda: radix_ntt.dif_ragged(x, 20, False), 10)
+    plain10 = cuda_ms(lambda: radix_ntt.dif_passes_plain(x, 20, False), 2)
+    t_bytes = (2 * n * cols * 4 + table_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = n // 2 * 20 * cols * BUTTERFLY_OPS / int32_ops_per_s * 1e3
+    log(f"ntt_dif_ragged at 2^20 x 10: {ms10:.4f} ms/call, plain "
+        f"{plain10:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    del x
 
     # keccak256: the leaf level of commit (b), 2^20 rows of 128 words
     rows, n_words = 1 << 20, 128
@@ -674,15 +669,17 @@ def main() -> int:
         f"GB/s; array in and out once at {2 * nbytes / t_ntt / 1e9:.1f} GB/s, "
         f"{t_copy / t_ntt:.4f} of the stream copy")
 
-    # commit (b) wall-clock, warm
-    best = float("inf")
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        commit_forward(traces[(19, 128)], device="cuda")
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    log(f"commit 2^19 x 128 wall-clock: {best * 1e3:.3f} ms (best of 3)")
+    # commits (b) and (c) wall-clock, warm
+    for shape in [(19, 128), (19, 51)]:
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            commit_forward(traces[shape], device="cuda")
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        log(f"commit 2^{shape[0]} x {shape[1]} wall-clock: {best * 1e3:.3f} "
+            f"ms (best of 3)")
 
     # where the time goes: one warm run under torch.profiler
     from torch.autograd import DeviceType
@@ -715,8 +712,9 @@ def main() -> int:
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"  {t / 1e3:9.3f} ms  {name[:110]}")
 
-    profile_run("commit 2^19 x 128",
-                lambda: commit_forward(traces[(19, 128)], device="cuda"))
+    for shape in [(19, 128), (19, 51)]:
+        profile_run(f"commit 2^{shape[0]} x {shape[1]}",
+                    lambda: commit_forward(traces[shape], device="cuda"))
 
     # path (d): commit_batches of both rounds and open_multi_batches, warm
     def wall_ms(fn, runs):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Experiments on the two redesigned kernels, on one CUDA GPU.
+"""Experiments on the kernels redesigned for the H100, on one CUDA GPU.
 
     python3 experiments/kernel_experiments.py [--poseidon2-source FILE]
+        [--ntt-only] [--parent DIR]
 
 Variants of valida_tpu_torch/csrc/poseidon2.cu and ntt.cu are made by text
 substitution, built beside each other with nvcc into build/experiments/,
@@ -24,8 +25,22 @@ It prints:
 4. ntt_dif_whole at 2^20 x 128, two passes (t_max 11) and three (t_max 8):
    as it is, without butterflies (memory only), without global loads and
    stores (compute only), each pass alone, with blocks numbered row sets
-   first, and with 32 KB tiles.
-Exits 1 without a GPU.
+   first, and with 32 KB tiles;
+5. ntt_dif_ragged at 2^20 x 51 and 2^20 x 10 (RAGGED_VARIANTS): as it is
+   (51 columns as 13+13+13+12), with full groups and a narrow last one
+   (16+16+16+3), with 68 KB tiles (3 x 17), with four blocks an SM, with
+   loads through registers instead of cp.async, without the copies' L2
+   prefetch hint and with a wider one, each pass alone, memory only and
+   compute only; each in two passes (t_max 11) and in three (t_max 8,
+   tiles of whole rows); then the kernel as built for the port at widths
+   10 to 200 and t_max 11, 9, 8 and 7, beside radix_ntt._ragged_t_max's
+   choice;
+6. with --parent DIR (a copy of another tree of the repo, e.g. `git archive
+   REV | tar -x -C build/parent`): radix_ntt.dif at 2^20 x 51, 2^20 x 10
+   and 2^20 x 128 on that tree and on this one in turns (parent, this,
+   this, parent), each in a process of its own, with a digest of each
+   output so the two trees are seen to agree.
+--ntt-only leaves out parts 2 and 3.  Exits 1 without a GPU.
 """
 
 from __future__ import annotations
@@ -33,6 +48,8 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import itertools
+import json
 import os
 import re
 import subprocess
@@ -94,6 +111,69 @@ NTT_VARIANTS = {
         ("W_BLOCKS_PER_SM = 3;", "W_BLOCKS_PER_SM = 6;"),
         ("constexpr int W_THREADS = 256;", "constexpr int W_THREADS = 128;")],
 }
+RAGGED_VARIANTS = {
+    "as it is": [],
+    "full groups, narrow last": [
+        ("  const int k = (rest_n + c_max - 1) / c_max;\n"
+         "  return (rest_n + k - 1) / k;",
+         "  return rest_n < c_max ? rest_n : c_max;")],
+    "68 KB tiles": [("constexpr int R_TILE_WORDS = 1 << 14;",
+                     "constexpr int R_TILE_WORDS = 17 << 10;")],
+    "4 blocks an SM": [("R_BLOCKS_PER_SM = 3;", "R_BLOCKS_PER_SM = 4;")],
+    "memory only": [("int l = 0;", "int l = T;"),
+                    ("if (T & 1) {", "if (false) {")],
+    "loads through registers": [
+        ("    for (int i = r; i < n_rows; i += R)\n"
+         "      cp_async4(buf + i * w + c, src + offset + i * row_step);",
+         "#pragma unroll 4\n"
+         "    for (int i = r; i < n_rows; i += R)\n"
+         "      buf[i * w + c] = src[offset + i * row_step];")],
+    "no L2 prefetch hint": [("cp.async.ca.shared.global.L2::128B",
+                             "cp.async.ca.shared.global")],
+    "L2 prefetch 256 B": [("cp.async.ca.shared.global.L2::128B",
+                           "cp.async.ca.shared.global.L2::256B")],
+    "first pass alone": [
+        ("    ntt_dif_ragged_kernel<<<(unsigned)tiles",
+         "    if (p == 0) ntt_dif_ragged_kernel<<<(unsigned)tiles")],
+    "second pass alone": [
+        ("    ntt_dif_ragged_kernel<<<(unsigned)tiles",
+         "    if (p == 1) ntt_dif_ragged_kernel<<<(unsigned)tiles")],
+    "compute only": [
+        ("      cp_async4(buf + i * w + c,",
+         "      if (src == nullptr) cp_async4(buf + i * w + c,"),
+        ("      dst[offset + i * row_step] = buf[i * w + c];",
+         "      if (buf[i * w + c] == 0x92345678u)\n"
+         "      dst[offset + i * row_step] = buf[i * w + c];")],
+}
+
+# radix_ntt.dif timed in a process of its own on one tree; prints one JSON
+# line {"log_n x cols": [ms, digest of the output]}
+TREE_TIMING = r"""
+import hashlib, json, sys, torch
+sys.path.insert(0, ".")
+from valida_tpu_torch.poly import radix_ntt
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+res = {}
+for log_n, cols in [(20, 51), (20, 10), (20, 128)]:
+    x = torch.randint(0, 2013265921, (1 << log_n, cols), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    y = radix_ntt.dif(x)
+    for _ in range(20):
+        radix_ntt.dif(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        radix_ntt.dif(x)
+    end.record()
+    torch.cuda.synchronize()
+    res[f"{log_n} x {cols}"] = [
+        start.elapsed_time(end) / 20,
+        hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]]
+print(json.dumps(res))
+"""
 
 
 def log(*args):
@@ -169,46 +249,13 @@ def build(group, sources):
     return libs
 
 
-def main() -> int:
+def rates_and_poseidon2(args, cuda_ms, rand_field, stream, sms):
+    """Parts 2 and 3: integer instruction rates and the poseidon2 variants."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("kernel_experiments: no CUDA GPU available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
-    from valida_tpu_torch import _build
-    from valida_tpu_torch.convert import table
     from valida_tpu_torch.crypto import poseidon2 as p2
-    from valida_tpu_torch.poly import ntt, radix_ntt
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--poseidon2-source",
-                    default=str(_build.CSRC / "poseidon2.cu"))
-    args = ap.parse_args()
     dev = torch.device("cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(smi("name,power.limit"))
-    log("clocks.max.sm, clocks.sm idle:", smi("clocks.max.sm,clocks.sm"))
-
-    def cuda_ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def rand_field(shape):
-        return torch.randint(0, P, shape, dtype=torch.int32, device=dev,
-                             generator=gen)
-
     # 2. integer instruction rates
     log("integer instruction rates:")
     micro = build("rates", {"int_rates": open(
@@ -299,6 +346,51 @@ def main() -> int:
             log(f"  SASS of {name}: {sum(c.values())} instructions: "
                 + ", ".join(f"{k}:{v}" for k, v in c.most_common(12)))
 
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_experiments: no CUDA GPU available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from valida_tpu_torch import _build
+    from valida_tpu_torch.convert import table
+    from valida_tpu_torch.poly import ntt, radix_ntt
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--poseidon2-source",
+                    default=str(_build.CSRC / "poseidon2.cu"))
+    ap.add_argument("--ntt-only", action="store_true")
+    ap.add_argument("--parent")
+    args = ap.parse_args()
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(smi("name,power.limit"))
+    log("clocks.max.sm, clocks.sm idle:", smi("clocks.max.sm,clocks.sm"))
+
+    def cuda_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def rand_field(shape):
+        return torch.randint(0, P, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    if not args.ntt_only:
+        rates_and_poseidon2(args, cuda_ms, rand_field, stream, sms)
+
     # 4. ntt_dif_whole
     log("ntt_dif_whole variants:")
     source = open(_build.CSRC / "ntt.cu").read()
@@ -313,7 +405,8 @@ def main() -> int:
     x = rand_field((1 << log_n, cols))
     pw = table(ntt._root_powers, log_n, False, device=dev)
     out = torch.empty_like(x)
-    want = {t: radix_ntt.dif_whole_plain(x, log_n, False, t) for t in (11, 8)}
+    want = {t: radix_ntt.dif_passes_plain(x, log_n, False, t)
+            for t in (11, 8)}
     libs = {}
     for name, so in build("ntt_", texts).items():
         h = ctypes.CDLL(so)
@@ -336,6 +429,84 @@ def main() -> int:
                     f"{levels}, turn {turn}: {ms:.4f} ms, output "
                     f"{'equals' if out.equal(want[t_max]) else 'differs from'}"
                     f" the plain version's")
+    del x, out
+
+    # 5. ntt_dif_ragged
+    log("ntt_dif_ragged variants:")
+    texts = {}
+    for name, pairs in RAGGED_VARIANTS.items():
+        text = substitute(source, pairs, name)
+        if text is None:
+            log(f"  {name}: does not apply to this source")
+        else:
+            texts[name] = text
+    libs = {}
+    for name, so in build("ragged_", texts).items():
+        h = ctypes.CDLL(so)
+        h.ntt_dif_ragged_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        libs[name] = h
+    log_n = 20
+    cases = []
+    for cols in (51, 10):
+        x = rand_field((1 << log_n, cols))
+        cases.append((x, torch.empty_like(x),
+                      radix_ntt.dif_passes_plain(x, log_n, False)))
+    # t_max 8: passes of 7+7+6 levels, whose tiles hold whole rows
+    for turn in range(2):
+        for name, h in libs.items():
+            for (x, out, want), t_max in itertools.product(cases, (11, 8)):
+                cols = x.shape[1]
+
+                def run():
+                    err = h.ntt_dif_ragged_launch(
+                        x.data_ptr(), out.data_ptr(), pw.data_ptr(), log_n,
+                        cols, t_max, stream)
+                    if err:
+                        raise RuntimeError(f"ntt_dif_ragged_launch: {err}")
+                ms = cuda_ms(run, 20)
+                levels = "+".join(map(str, radix_ntt._pass_levels(log_n,
+                                                                  t_max)))
+                log(f"  ntt_dif_ragged {name}, 2^{log_n} x {cols}, passes "
+                    f"{levels}, turn {turn}: {ms:.4f} ms, output "
+                    f"{'equals' if out.equal(want) else 'differs from'}"
+                    f" the plain version's")
+    del cases
+    log("ntt_dif_ragged by shape and t_max (ms; levels of the passes, "
+        "column groups of the first; * marks radix_ntt._ragged_t_max):")
+    shapes = [(20, c) for c in (10, 32, 51, 64, 79, 100, 200)]
+    shapes += [(n, c) for n in (16, 17, 19) for c in (10, 51, 79)]
+    for log_n, cols in shapes:
+        x = rand_field((1 << log_n, cols))
+        res = []
+        for t_max in (11, 9, 8, 7):
+            levels = radix_ntt._pass_levels(log_n, t_max)
+            ms = cuda_ms(lambda: radix_ntt.dif_ragged(x, log_n, False, t_max),
+                         20)
+            groups = "+".join(str(w) for _, w in
+                              radix_ntt._column_groups(cols, levels[0]))
+            mark = "*" if levels == radix_ntt._pass_levels(
+                log_n, radix_ntt._ragged_t_max(log_n, cols)) else ""
+            res.append(f"t_max {t_max} {ms:.4f}{mark} "
+                       f"({'+'.join(map(str, levels))}; {groups})")
+        log(f"  2^{log_n} x {cols}: " + ", ".join(res))
+        del x
+
+    # 6. the parent tree against this one, in turns
+    if args.parent:
+        log(f"radix_ntt.dif, {args.parent} (parent) against this tree, in "
+            f"turns, a process each (ms, output digest):")
+        trees = [("parent", args.parent), ("this", ROOT), ("this", ROOT),
+                 ("parent", args.parent)]
+        for name, tree in trees:
+            proc = subprocess.run([sys.executable, "-c", TREE_TIMING],
+                                  cwd=tree, capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"{name} tree failed:\n{proc.stderr}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            log(f"  {name}: " + ", ".join(
+                f"{k} {ms:.4f} ms ({digest})"
+                for k, (ms, digest) in res.items()))
     return 0
 
 

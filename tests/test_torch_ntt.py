@@ -1,10 +1,10 @@
 """The port's NTT (valida_tpu_torch.poly.ntt, .radix_ntt) against
-valida_tpu.poly.ntt / mxu_ntt: transforms on the numpy path, the step
-tables, the plain versions of the step and tail kernels against the
-reference's Pallas kernels in interpret mode, and the pass-structured plain
-version of the whole-transform kernel (its passes, row sets and twiddle
-indices are the kernel's) against the numpy stage loop.  Exact equality
-throughout."""
+valida_tpu.poly.ntt / mxu_ntt: transforms on the numpy path, the tables,
+the pass-structured plain version of both kernels (its passes, row sets and
+twiddle indices are the kernels') against the numpy stage loop and, for
+ragged widths, against the reference's step and tail Pallas kernels in
+interpret mode; the ragged kernel's column groups and the routing between
+the two kernels.  Exact equality throughout."""
 
 import functools
 
@@ -88,30 +88,14 @@ def test_radix_dif_matches_reference(log_n, cols):
 
 def test_tables_match_reference():
     for log_n in (7, 9, 14, 19):
-        assert radix_ntt._radix_schedule(log_n) == mxu_ntt._radix_schedule(log_n)
         for inverse in (False, True):
-            pairs = [(ntt._root_powers, rntt._root_powers, (log_n, inverse))]
-            for _, log_len, radix_log, last in radix_ntt._steps(log_n):
-                if not last:
-                    args = (log_len, inverse, radix_log)
-                    pairs += [(radix_ntt._step_dft, mxu_ntt._step_dft, args),
-                              (radix_ntt._step_twiddles,
-                               mxu_ntt._step_twiddles, args)]
-            pairs.append((radix_ntt._tail_dft, mxu_ntt._tail_dft, (inverse,)))
-            for mine, theirs, args in pairs:
-                got = table(mine, *args, device="cpu")
-                assert got.equal(from_reference(theirs(*args))), (mine, args)
+            got = table(ntt._root_powers, log_n, inverse, device="cpu")
+            assert got.equal(from_reference(rntt._root_powers(log_n,
+                                                              inverse)))
         assert table(ntt.bitrev_indices, log_n, device="cpu").equal(
             from_reference(rntt.bitrev_indices(log_n).astype(np.uint32)))
         assert table(ntt.shift_powers, 31, log_n, device="cpu").equal(
             from_reference(rntt.shift_powers(31, log_n)))
-
-
-def test_mega_supported_matches_reference():
-    for log_n in (13, 14, 19):
-        for rest_n in (51, 64, 120, 128, 256, 2048, 4096):
-            assert (radix_ntt._mega_supported(log_n, rest_n)
-                    == mxu_ntt._mega_supported(log_n, rest_n))
 
 
 @pytest.fixture
@@ -120,32 +104,24 @@ def interpret(monkeypatch):
     monkeypatch.setenv("VALIDA_TPU_MXU_I8", "1")
 
 
-@pytest.mark.parametrize("log_len,radix_log,rest_n", [(8, 1, 4), (9, 2, 3)])
-def test_step_plain_matches_step_pallas(interpret, log_len, radix_log, rest_n):
-    n = 1 << log_len
-    m4 = n // 128
-    x = _worst((n, rest_n))
-    tm = mxu_ntt._step_tile(m4, rest_n)
-    want = np.asarray(mxu_ntt._step_pallas(jnp.asarray(x), 1, log_len, False,
-                                           rest_n, radix_log, tm))
-    d = table(radix_ntt._step_dft, log_len, False, radix_log, device="cpu")
-    tw = table(radix_ntt._step_twiddles, log_len, False, radix_log,
-               device="cpu")
-    got = radix_ntt.step(from_reference(x).reshape(1, 128, m4 * rest_n), d, tw,
-                         rest_n)
-    np.testing.assert_array_equal(to_numpy(got).reshape(n, rest_n),
-                                  want.reshape(n, rest_n))
-
-
-@pytest.mark.parametrize("blocks,rest_n,inverse", [(2, 4, False), (4, 3, True)])
-def test_tail_plain_matches_tail_pallas(interpret, blocks, rest_n, inverse):
-    x = _worst((blocks * 128, rest_n))
-    want = np.asarray(mxu_ntt._tail_pallas(jnp.asarray(x), blocks, inverse,
-                                           rest_n))
-    d = table(radix_ntt._tail_dft, inverse, device="cpu")
-    got = radix_ntt.tail(from_reference(x).reshape(blocks, 128, rest_n), d)
-    np.testing.assert_array_equal(to_numpy(got).reshape(x.shape),
-                                  want.reshape(x.shape))
+@pytest.mark.parametrize("log_n,cols,inverse", [(8, 51, False), (9, 3, True)])
+def test_ragged_matches_step_and_tail_pallas(interpret, monkeypatch, log_n,
+                                             cols, inverse):
+    """radix_ntt.dif on a CPU tensor (the ragged kernel's plain version)
+    against the reference's mxu_ntt.dif, which runs the two TPU kernels
+    ntt_dif_ragged replaces, _step_pallas and _tail_pallas, in interpret
+    mode."""
+    ran = []
+    for name in ("_step_pallas", "_tail_pallas"):
+        def counted(*args, _fn=getattr(mxu_ntt, name), _name=name):
+            ran.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(mxu_ntt, name, counted)
+    x = _worst((1 << log_n, cols))
+    want = np.asarray(mxu_ntt.dif(jnp.asarray(x), inverse))
+    assert set(ran) == {"_step_pallas", "_tail_pallas"}
+    got = radix_ntt.dif(from_reference(x), inverse)
+    np.testing.assert_array_equal(to_numpy(got), want)
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -241,3 +217,76 @@ def test_pass_twiddles_are_the_root_powers(log_n, t_max, inverse):
                 assert e == (j % h) << s
                 assert int(pw[e]) == pow(w, e, P) * (1 << 32) % P
         s0 += t
+
+
+@pytest.mark.parametrize("t_max", [5, 11])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n,cols", [(11, 1), (12, 10), (13, 32), (14, 51)])
+def test_ragged_plain_passes_match_numpy_path(log_n, cols, inverse, t_max):
+    """The ragged kernel's plain version at the widths it serves, in one
+    pass or two (t_max 11) and in three (t_max 5), against the numpy stage
+    loop."""
+    x, want = _whole_case(log_n, cols, inverse)
+    got = radix_ntt.dif_ragged(x, log_n, inverse, t_max)
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("t_max", [5, 11])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("fill", [0, P - 1])
+def test_ragged_plain_passes_constant_words(fill, inverse, t_max):
+    """Arrays of all 0 and all p - 1 at 2^13 x 51 go through the ragged
+    passes word for word, as the kernel's check on the card runs them."""
+    x = np.full((1 << 13, 51), fill, np.uint32)
+    got = radix_ntt.dif_ragged(from_reference(x), 13, inverse, t_max)
+    np.testing.assert_array_equal(to_numpy(got), rntt.dif(x, inverse=inverse))
+
+
+@pytest.mark.parametrize("rest_n", [1, 3, 10, 32, 51, 79, 127, 200])
+def test_column_groups_cover_every_column_once(rest_n):
+    """At every pass size the groups cover columns 0 .. rest_n - 1 once, in
+    order; all but the last share one width and the last is no wider; a
+    tile fits the kernel's shared memory and a group has a thread a
+    column."""
+    for t in range(1, radix_ntt.T_MAX + 1):
+        groups = radix_ntt._column_groups(rest_n, t)
+        cols = [c0 + k for c0, w in groups for k in range(w)]
+        assert cols == list(range(rest_n))
+        width = groups[0][1]
+        assert all(w == width for _, w in groups[:-1])
+        assert 1 <= groups[-1][1] <= width
+        assert width << t <= radix_ntt.TILE_WORDS
+        assert width <= radix_ntt.RAGGED_THREADS
+        c_max = min(radix_ntt.TILE_WORDS >> t, radix_ntt.RAGGED_THREADS)
+        assert len(groups) == -(-rest_n // c_max)
+    if rest_n == 51:  # 2^20 rows: two passes of 10 levels
+        assert radix_ntt._column_groups(51, 10) == [(0, 13), (13, 13),
+                                                    (26, 13), (39, 12)]
+
+
+def test_routing_by_width():
+    """Widths that are a multiple of 128 run the whole-width kernel, every
+    other width the ragged one; dif on a CPU tensor is the plain passes."""
+    for rest_n in (128, 256, 384, 2048, 4096):
+        assert radix_ntt._pass_kernel(rest_n) is radix_ntt.dif_whole
+    for rest_n in (1, 3, 10, 32, 51, 64, 79, 127, 129, 200, 4095):
+        assert radix_ntt._pass_kernel(rest_n) is radix_ntt.dif_ragged
+    x = from_reference(_field(3, (1 << 7, 2, 5)))
+    assert radix_ntt.dif(x).equal(
+        radix_ntt.dif_passes_plain(x.reshape(128, 10), 7, False)
+        .reshape(x.shape))
+
+
+@pytest.mark.parametrize("log_n,cols,want", [
+    (20, 10, [10, 10]), (20, 32, [10, 10]), (20, 51, [7, 7, 6]),
+    (20, 64, [10, 10]), (20, 79, [7, 7, 6]), (20, 200, [10, 10]),
+    (19, 51, [7, 6, 6]), (17, 51, [9, 8]), (16, 79, [8, 8]), (12, 32, [6, 6]),
+    (20, 1001, [10, 10])])
+def test_ragged_pass_split(log_n, cols, want):
+    """The ragged kernel's default split: whole-row tiles for one pass more
+    where rows are no multiple of 8 words and the array outgrows the L2;
+    never two passes more (1001 columns would need five)."""
+    t_max = radix_ntt._ragged_t_max(log_n, cols)
+    assert radix_ntt._pass_levels(log_n, t_max) == want
+    if len(want) > len(radix_ntt._pass_levels(log_n, radix_ntt.T_MAX)):
+        assert radix_ntt._column_groups(cols, want[0]) == [(0, cols)]

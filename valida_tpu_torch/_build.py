@@ -31,9 +31,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> {C entry: argtypes}
 SIGNATURES = {
     "ntt": {
-        "ntt_step_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
-        "ntt_tail_launch": [_P, _P, _P, _I, _I, _P],
         "ntt_dif_whole_launch": [_P, _P, _P, _I, _I, _I, _P],
+        "ntt_dif_ragged_launch": [_P, _P, _P, _I, _I, _I, _P],
     },
     "keccak": {
         "keccak256_launch": [_P, _P, _I, _I, _P],
@@ -45,7 +44,7 @@ SIGNATURES = {
 }
 
 # launches of each kernel, counted by its wrapper where it launches
-LAUNCHES = {"ntt_step": 0, "ntt_tail": 0, "ntt_dif_whole": 0, "keccak256": 0,
+LAUNCHES = {"ntt_dif_whole": 0, "ntt_dif_ragged": 0, "keccak256": 0,
             "poseidon2": 0}
 
 _LIBS: dict = {}

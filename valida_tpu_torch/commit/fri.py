@@ -201,7 +201,7 @@ def extract_final_poly(current: torch.Tensor, config: FriConfig,
 # ---------------------------------------------------------------------------
 
 
-def grind_device(challenger, bits: int, device="cpu") -> int:
+def grind_device(challenger, bits: int, device="cuda") -> int:
     """The smallest witness w such that observing w and then sampling
     `bits` bits gives 0, searched in ascending batches of Poseidon
     permutations on `device`.

@@ -2,13 +2,11 @@
 // out, decimation in frequency along axis 0 of a row-major [n, rest_n] array
 // of Montgomery words.
 //
-//   ntt_dif_whole replaces valida_tpu/poly/mxu_ntt.py::_mega_pallas
-//                 (the whole transform, rest_n a multiple of 128);
-//   ntt_step      replaces mxu_ntt.py::_step_pallas
-//                 (one non-final radix-128 step: product, then twiddle);
-//   ntt_tail      replaces mxu_ntt.py::_tail_pallas
-//                 (the final M = 1 step: blockwise 128-point transforms,
-//                 ntt_step's body with no twiddle).
+//   ntt_dif_whole  replaces valida_tpu/poly/mxu_ntt.py::_mega_pallas
+//                  (the whole transform, rest_n a multiple of 128);
+//   ntt_dif_ragged replaces mxu_ntt.py::_step_pallas and ::_tail_pallas
+//                  together (the TPU's radix-128 four-step transform, one
+//                  kernel a step: every other width).
 //
 // ntt_dif_whole: radix-2 butterflies in shared memory.  The TPU kernel runs
 // 7 levels at once as an exact [128,128] modular matrix product, because the
@@ -39,23 +37,39 @@
 // about 0.8 ms at the int8 peak, above the butterflies' least, for far more
 // code.
 //
-// ntt_step and ntt_tail share one tile routine, y = D·x (mod p) on a
-// [128 x TC] column tile, optionally followed by a Montgomery twiddle
-// multiply.  The tables are the reference's own: D is the canonical
-// [128,128] step matrix (bit-reversed rows, kron(D_R, I) for a radix R < 128)
-// and tw the Montgomery twiddles [M4, 128].  Data x is Montgomery, D
-// canonical, so the modular product of the two is again Montgomery, as on
-// the TPU.  Layout: a step sees the data as x[blocks][128][L], L = M4 *
-// rest_n (rest_n = the row width).  A tile is one slab b and TC = 32
-// consecutive columns; the column edge is masked, so any width works.  What
-// bounds them: integer multiplies, 128 32x32->64 multiply-adds per output
-// word on the CUDA cores, about ten times the time the step's bytes need.
-// Design: the 64 KB matrix stays in shared memory for every tile a block
-// walks over, each thread keeps 16 u64 accumulators (one column, 16 rows)
-// and reads the matrix as 16-byte broadcasts; the accumulator is folded as
-// hi * (2^32 mod p) + lo after every 4 products (4 (p-1)^2 + 2^60 < 2^64),
-// and reduced mod p once at the end.  They serve the widths ntt_dif_whole
-// rejects, and await the same redesign.
+// ntt_dif_ragged: the same passes, row sets, twiddles and radix-4 rounds for
+// a width that is no multiple of 128 (51 and 10 columns on the PCS paths, 32
+// at the entry's commit).  The TPU splits the transform into steps of 7
+// levels because its matrix unit does 7 levels as one [128,128] product,
+// with a twiddle between steps and none after the last (_step_pallas,
+// _tail_pallas); butterflies need neither the matrices nor the split, so one
+// kernel computes what the two compute together.  What bounds it: at 2^20 x
+// 51 the least is 0.128 ms twice over, 2 * 2^20 * 51 words and the 2 MB
+// table at 3.35 TB/s, and 2^19 * 20 * 51 butterflies at 4 issue slots.  What
+// the whole-width kernel may assume and this one may not:
+// - rows of 51 or 10 words are not 16-byte aligned, so the tile is loaded
+//   with 4-byte cp.async copies (.ca, with a 128-byte L2 prefetch, 3%
+//   faster) and a thread holds one word of a row, not four;
+// - the columns are cut into the fewest groups of at most 2^14 >> T words,
+//   as even as they go (ragged_columns: 51 = 13+13+13+12 at T = 10, 10 is
+//   one group), and the block of a group narrower than the others lays its
+//   threads out on its own width, so it does only its own arithmetic;
+// - a piece of a row that starts inside a 32-byte sector moves a sector
+//   more than it holds, and with 51 words a row every piece but the first
+//   does: on the H100 the first pass at 2^20 x 51 in 13-word pieces takes
+//   0.43 ms against 0.32 for the second (experiments/kernel_experiments.py
+//   times these variants).  Above the L2's size the caller therefore
+//   asks for passes short enough that a tile holds whole rows (t_max 8:
+//   7+7+6 levels at 2^20 x 51), one pass more for whole sectors
+//   (poly/radix_ntt.py::_ragged_t_max);
+// - a thread's column lane c and row slot r are fixed for the whole pass
+//   (c = tid mod w, r = tid / w, one division a block), so the level loops
+//   divide by nothing; a warp covers 32 consecutive (slot, lane) places;
+// - the tile's row stride is the group's width w: while a radix-4 round
+//   pairs neighbouring rows (every round but the last), a warp's 32 words
+//   are consecutive in shared memory, so they fall on 32 banks.
+// Blocks are numbered column group first, then `low`, as in ntt_dif_whole,
+// so the first pass's short pieces are merged in L2 across blocks in flight.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -64,104 +78,6 @@ namespace {
 
 constexpr uint32_t P = 2013265921u;
 constexpr uint32_t MU = 2281701377u;        // p^-1 mod 2^32
-constexpr uint64_t TWO32_MOD_P = 268435454ull;
-constexpr int B = 128;
-constexpr int TC = 32;                      // columns per tile (one warp)
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / TC;         // 8
-constexpr int ROWS = B / WARPS;             // 16 output rows per thread
-constexpr int SMEM_BYTES = (B * B + B * TC) * 4;  // matrix + x tile: 80 KB
-
-__device__ __forceinline__ uint32_t monty_mul(uint32_t a, uint32_t b) {
-  const uint64_t t = (uint64_t)a * b;
-  const uint32_t m = (uint32_t)t * MU;
-  const uint32_t hi = (uint32_t)(t >> 32);
-  const uint32_t mp = __umulhi(m, P);
-  const uint32_t r = hi - mp;
-  return hi < mp ? r + P : r;
-}
-
-// One tile: y[u][c0 + c] for the 128 rows u and TC columns of slab `slab`.
-__device__ void tile(const uint32_t* src, uint32_t* dst, const uint32_t* Ds,
-                     uint32_t* xs, const uint32_t* tw, size_t slab, int L,
-                     int c0, int rest_n) {
-  const int tid = threadIdx.x;
-  for (int k = tid; k < B * TC; k += THREADS) {
-    const int col = c0 + k % TC;
-    xs[k] = col < L ? src[slab + (size_t)(k / TC) * L + col] : 0u;
-  }
-  __syncthreads();
-  const int c = tid % TC;
-  const int w = tid / TC;
-  uint64_t acc[ROWS];
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) acc[k] = 0;
-#pragma unroll 2
-  for (int i = 0; i < B; i += 4) {
-    const uint32_t x0 = xs[i * TC + c];
-    const uint32_t x1 = xs[(i + 1) * TC + c];
-    const uint32_t x2 = xs[(i + 2) * TC + c];
-    const uint32_t x3 = xs[(i + 3) * TC + c];
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k) {
-      const uint4 d = *reinterpret_cast<const uint4*>(Ds + (w + WARPS * k) * B + i);
-      uint64_t s = acc[k];
-      s += (uint64_t)d.x * x0;
-      s += (uint64_t)d.y * x1;
-      s += (uint64_t)d.z * x2;
-      s += (uint64_t)d.w * x3;
-      acc[k] = (uint64_t)(uint32_t)(s >> 32) * TWO32_MOD_P + (uint32_t)s;
-    }
-  }
-  __syncthreads();  // xs is refilled by the next tile
-  const int col = c0 + c;
-  if (col < L) {
-    const int t = col / rest_n;
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k) {
-      const int u = w + WARPS * k;
-      uint32_t y = (uint32_t)(acc[k] % P);
-      if (tw != nullptr) y = monty_mul(y, __ldg(tw + (size_t)t * B + u));
-      dst[slab + (size_t)u * L + col] = y;
-    }
-  }
-}
-
-// One whole step: matrix D into shared memory, then a block-stride walk
-// over the blocks * ceil(L / TC) tiles.
-__device__ void run_step(const uint32_t* src, uint32_t* dst, const uint32_t* D,
-                         const uint32_t* tw, long long blocks, int L,
-                         int rest_n, uint32_t* smem) {
-  uint32_t* Ds = smem;
-  uint32_t* xs = smem + B * B;
-  for (int k = threadIdx.x; k < B * B / 4; k += THREADS)
-    reinterpret_cast<uint4*>(Ds)[k] = __ldg(reinterpret_cast<const uint4*>(D) + k);
-  // the first __syncthreads() of tile() orders these stores before any read
-  const long long per_slab = (L + TC - 1) / TC;
-  const long long total = blocks * per_slab;
-  for (long long item = blockIdx.x; item < total; item += gridDim.x) {
-    const long long b = item / per_slab;
-    const int c0 = (int)(item % per_slab) * TC;
-    tile(src, dst, Ds, xs, tw, (size_t)b * B * L, L, c0, rest_n);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-ntt_step_kernel(const uint32_t* x, uint32_t* y, const uint32_t* D,
-                const uint32_t* tw, int blocks, int L, int rest_n) {
-  extern __shared__ uint4 smem4[];
-  run_step(x, y, D, tw, blocks, L, rest_n, reinterpret_cast<uint32_t*>(smem4));
-}
-
-// The same step with no twiddle; a function of its own so that a profile
-// tells the tail's time apart from the steps'.
-__global__ void __launch_bounds__(THREADS)
-ntt_tail_kernel(const uint32_t* x, uint32_t* y, const uint32_t* D,
-                const uint32_t* tw, int blocks, int L, int rest_n) {
-  extern __shared__ uint4 smem4[];
-  run_step(x, y, D, nullptr, blocks, L, rest_n,
-           reinterpret_cast<uint32_t*>(smem4));
-}
 
 // ---------------------------------------------------------------------------
 // ntt_dif_whole: radix-2 butterflies in shared memory
@@ -329,48 +245,118 @@ ntt_dif_whole_kernel(const uint32_t* src, uint32_t* dst,
   }
 }
 
-// Largest grid whose blocks are all resident at once.
-cudaError_t resident_grid(const void* kernel, int* grid) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                    SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  *grid = per_sm * sms;
-  return *grid > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+// ---------------------------------------------------------------------------
+// ntt_dif_ragged: the same passes on any width, one word a thread
+// ---------------------------------------------------------------------------
+
+constexpr int R_TILE_WORDS = 1 << 14;  // a tile holds at most 2^14 words
+constexpr int R_THREADS = 256;
+constexpr int R_BLOCKS_PER_SM = 3;
+
+__device__ __forceinline__ void cp_async4(uint32_t* smem,
+                                          const uint32_t* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n"
+               ::"r"(s),
+               "l"(__cvta_generic_to_global(gmem))
+               : "memory");
 }
 
-int launch_step(const void* x, void* y, const void* D, const void* tw,
-                int blocks, int L, int rest_n, void* stream) {
-  const auto kernel = tw == nullptr ? ntt_tail_kernel : ntt_step_kernel;
-  int grid = 0;
-  cudaError_t e = resident_grid((const void*)kernel, &grid);
-  if (e != cudaSuccess) return (int)e;
-  const long long tiles = (long long)blocks * ((L + TC - 1) / TC);
-  if (tiles < grid) grid = (int)tiles;
-  kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)D,
-      (const uint32_t*)tw, blocks, L, rest_n);
-  return (int)cudaGetLastError();
+// Width of a column group of a pass of T levels: the fewest groups of at
+// most min(R_TILE_WORDS >> T, R_THREADS) columns, as even as they go; every
+// group but the last is this wide (poly/radix_ntt.py::_column_groups).
+int ragged_columns(int rest_n, int T) {
+  int c_max = R_TILE_WORDS >> T;
+  if (c_max > R_THREADS) c_max = R_THREADS;
+  const int k = (rest_n + c_max - 1) / c_max;
+  return (rest_n + k - 1) / k;
+}
+
+// One pass, as ntt_dif_whole_kernel's, on the tile of row set blockIdx.x /
+// groups and its column group blockIdx.x mod groups: columns c0 .. c0 + w - 1,
+// w = min(C, rest_n - c0).  Word (i, c) of the tile sits at buf[i * w + c];
+// the twiddle of (lv, k) at tws[2^(T-1-lv) | k].
+__global__ void __launch_bounds__(R_THREADS, R_BLOCKS_PER_SM)
+ntt_dif_ragged_kernel(const uint32_t* src, uint32_t* dst,
+                      const uint32_t* __restrict__ pw, int log_n, int s0,
+                      int T, int C, int rest_n) {
+  extern __shared__ uint32_t smem[];
+  const int n_rows = 1 << T;
+  uint32_t* tws = smem;
+  uint32_t* buf = smem + n_rows;
+  const int tid = threadIdx.x;
+  const int s_log = log_n - s0 - T;
+  const unsigned groups = (rest_n + C - 1) / C;
+  const unsigned row_set = blockIdx.x / groups;
+  const int c0 = (int)(blockIdx.x - row_set * groups) * C;
+  const int w = min(C, rest_n - c0);
+  const int c = tid % w, r = tid / w;  // fixed for the whole pass
+  const int R = R_THREADS / w;         // row slots; threads r >= R idle
+  const bool active = r < R;
+  const size_t low = row_set & ((1u << s_log) - 1);
+  const size_t hi = row_set >> s_log;
+  const size_t offset = ((hi << (log_n - s0)) + low) * rest_n + c0 + c;
+  const size_t row_step = (size_t)rest_n << s_log;
+
+  for (int e = 1 + tid; e < n_rows; e += R_THREADS) {
+    const int top = 31 - __clz(e);  // level T - 1 - top, butterfly e - 2^top
+    const size_t k = e - (1 << top);
+    tws[e] = __ldg(pw + (((k << s_log) + low) << (s0 + T - 1 - top)));
+  }
+  if (active)
+    for (int i = r; i < n_rows; i += R)
+      cp_async4(buf + i * w + c, src + offset + i * row_step);
+  cp_async_wait_all();
+  __syncthreads();  // orders the twiddle stores above too
+
+  int l = 0;
+  if (T & 1) {  // odd T: one radix-2 round first, rows g and g + 2^(T-1)
+    const int hl = n_rows >> 1;
+    const int hw = hl * w;
+    if (active)
+      for (int g = r; g < hl; g += R) {
+        uint32_t* p = buf + g * w + c;
+        uint32_t x0 = p[0], x1 = p[hw];
+        butterfly(x0, x1, tws[hl | g]);
+        p[0] = x0;
+        p[hw] = x1;
+      }
+    __syncthreads();
+    l = 1;
+  }
+  // radix-4 rounds: levels l and l + 1 on rows i0 + m * st, m < 4, in
+  // registers; i0 = (a << (T - l)) | b with b < st = 2^(T-l-2)
+  for (; l < T; l += 2) {
+    const int sub = T - l - 2;
+    const int st = 1 << sub;
+    const int sw = st * w;
+    if (active)
+      for (int g = r; g < n_rows >> 2; g += R) {
+        const int b = g & (st - 1);
+        const int i0 = ((g >> sub) << (sub + 2)) | b;
+        uint32_t* p = buf + i0 * w + c;
+        uint32_t x0 = p[0], x1 = p[sw], x2 = p[2 * sw], x3 = p[3 * sw];
+        // level l: hl = 2 st, rows i0 + {0, st} against i0 + {2 st, 3 st}
+        butterfly(x0, x2, tws[(2 * st) | b]);
+        butterfly(x1, x3, tws[(2 * st) | st | b]);
+        // level l + 1: hl = st, both pairs at butterfly b
+        const uint32_t tw = tws[st | b];
+        butterfly(x0, x1, tw);
+        butterfly(x2, x3, tw);
+        p[0] = x0;
+        p[sw] = x1;
+        p[2 * sw] = x2;
+        p[3 * sw] = x3;
+      }
+    __syncthreads();
+  }
+
+  if (active)
+    for (int i = r; i < n_rows; i += R)
+      dst[offset + i * row_step] = buf[i * w + c];
 }
 
 }  // namespace
-
-extern "C" int ntt_step_launch(const void* x, void* y, const void* D,
-                               const void* tw, int blocks, int L, int rest_n,
-                               void* stream) {
-  return launch_step(x, y, D, tw, blocks, L, rest_n, stream);
-}
-
-extern "C" int ntt_tail_launch(const void* x, void* y, const void* D,
-                               int blocks, int rest_n, void* stream) {
-  return launch_step(x, y, D, nullptr, blocks, rest_n, rest_n, stream);
-}
 
 // The whole DIF as k = ceil(log_n / t_max) passes of floor(log_n / k) levels,
 // the first log_n mod k of them one level more (poly/radix_ntt.py
@@ -402,6 +388,39 @@ extern "C" int ntt_dif_whole_launch(const void* x, void* out, const void* pw,
     ntt_dif_whole_kernel<<<(unsigned)tiles, W_THREADS, smem,
                            (cudaStream_t)stream>>>(
         src, (uint32_t*)out, (const uint32_t*)pw, log_n, s0, T, q_log, rest_n);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    src = (const uint32_t*)out;
+    s0 += T;
+  }
+  return (int)cudaSuccess;
+}
+
+// The whole DIF of any width in ntt_dif_whole_launch's passes, one launch
+// each on the same stream, a block a tile: a row set's 2^T rows x one column
+// group of ragged_columns(rest_n, T) columns (fewer in the last group).
+extern "C" int ntt_dif_ragged_launch(const void* x, void* out, const void* pw,
+                                     int log_n, int rest_n, int t_max,
+                                     void* stream) {
+  if (log_n < 1 || log_n > 30 || t_max < 1 || t_max > W_T_MAX || rest_n < 1)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = (const void*)ntt_dif_ragged_kernel;
+  const int max_smem = 4 * R_TILE_WORDS + (4 << W_T_MAX);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (e != cudaSuccess) return (int)e;
+  const int k = (log_n + t_max - 1) / t_max;
+  const uint32_t* src = (const uint32_t*)x;
+  int s0 = 0;
+  for (int p = 0; p < k; ++p) {
+    const int T = log_n / k + (p < log_n % k ? 1 : 0);
+    const int C = ragged_columns(rest_n, T);
+    const int smem = 4 * ((C << T) + (1 << T));
+    const long long tiles =
+        (1ll << (log_n - T)) * (long long)((rest_n + C - 1) / C);
+    if (tiles > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+    ntt_dif_ragged_kernel<<<(unsigned)tiles, R_THREADS, smem,
+                            (cudaStream_t)stream>>>(
+        src, (uint32_t*)out, (const uint32_t*)pw, log_n, s0, T, C, rest_n);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     src = (const uint32_t*)out;
     s0 += T;

@@ -96,7 +96,7 @@ def dif(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         raise ValueError("NTT size must be a power of two")
     if n == 1:
         return a
-    if a.device.type == "cuda" and log_n >= radix_ntt.LOG_B:
+    if a.device.type == "cuda" and log_n >= radix_ntt.MIN_LOG_N:
         return radix_ntt.dif(a, inverse)
     rest = tuple(a.shape[1:])
     nd = len(rest)

@@ -3,158 +3,91 @@
 Counterpart of valida_tpu/poly/mxu_ntt.py (named for the TPU's matrix unit,
 which the H100 lacks).  Outputs are bit-identical to poly/ntt.dif.
 
-`dif_whole` -> ntt_dif_whole (replaces mxu_ntt._mega_pallas), for the
-widths the reference sends to its whole-transform kernel (`_mega_supported`).
-Radix-2 butterflies in shared memory: level s pairs row j with row j + h,
-h = n >> (s+1), in place, and multiplies the difference by
-pw[(j mod h) << s], pw = ntt._root_powers.  The log_n levels are split
-into the fewest passes of at most `T_MAX` (`_pass_levels`).  A pass over
-levels s0 .. s0+T-1 cuts the rows into row sets
-(hi << (log_n-s0)) + i·S + low, i < 2^T, S = 2^(log_n-s0-T), which those
-levels pair among themselves; a tile (a row set's 2^T rows x a few columns,
-64 KB) is loaded into shared memory once, all T levels run there, and it
-is written back once, so every word crosses device memory twice a pass
-and the butterflies cost 8 integer instructions each.  The first pass reads
-the input and writes the output, the later ones run in place: no scratch.
-`dif_whole_plain` follows the same passes, row sets and twiddle index
-formula (`_pass_twiddle_index`), so a CPU test catches an indexing error.
+Both kernels (csrc/ntt.cu) run radix-2 butterflies in shared memory, pass
+by pass: level s pairs row j with row j + h, h = n >> (s+1), in place, and
+multiplies the difference by pw[(j mod h) << s], pw = ntt._root_powers.
+The log_n levels are split into the fewest passes of at most `T_MAX`
+(`_pass_levels`).  A pass over levels s0 .. s0+T-1 cuts the rows into row
+sets (hi << (log_n-s0)) + i·S + low, i < 2^T, S = 2^(log_n-s0-T), which
+those levels pair among themselves; a tile (a row set's 2^T rows x a group
+of columns, at most 64 KB) is loaded into shared memory once, all T levels
+run there, and it is written back once, so every word crosses device memory
+twice a pass and the butterflies cost 8 integer instructions each.  The
+first pass reads the input and writes the output, the later ones run in
+place: no scratch.
 
-`step` -> ntt_step (replaces mxu_ntt._step_pallas) and `tail` -> ntt_tail
-(replaces mxu_ntt._tail_pallas) serve the other widths with the
-reference's radix-128 four-step scheme and its tables: up to 7 butterfly
-levels at once as a 128-point DFT product along axis 0, by the identity
+* `dif_whole` -> ntt_dif_whole (replaces mxu_ntt._mega_pallas): widths
+  that are a multiple of 128, in 16-byte units, 4 columns a thread.
+* `dif_ragged` -> ntt_dif_ragged (replaces mxu_ntt._step_pallas and
+  _tail_pallas, the two pieces of the TPU's radix-128 four-step transform):
+  every other width, one word a thread, the columns cut into
+  `_column_groups` with the last group's edge masked, in passes short
+  enough for whole rows where pieces of rows would waste sectors
+  (`_ragged_t_max`).  The TPU needs the steps because its matrix unit does
+  7 levels as one [128,128] product; butterflies need neither the matrices
+  nor the split.
 
-    X[u + B·v] = DFT_M( w^{u·t} · Σ_i (w^M)^{u·i} x[i·M + t] )[v]
-
-(`w` the order-L root, B = 128, M = L/B): one exact [128,128] modular
-product (128 wide multiply-adds per word on the CUDA cores, which is what
-bounds these two), a pointwise twiddle, and a bit-reversal of the output
-rows folded into the matrix, then recursion on the M-point blocks.  The
-log2(N) mod 7 remainder step comes first, so the last (M = 1) step is
-always a full 128-point transform without twiddle.
-
-Each kernel (csrc/ntt.cu) stands beside its plain PyTorch version.  A CPU
-tensor runs the plain version; a CUDA tensor runs the kernel.  The
-reference's lane padding to a multiple of 8 (a Mosaic tile rule) is gone:
-the step kernels mask the ragged column edge themselves.
+`dif_passes_plain` follows the same passes, row sets and twiddle index
+formula (`_pass_twiddle_index`) on any width, so a CPU test catches an
+indexing error of either kernel.  A CPU tensor runs it; a CUDA tensor runs
+the kernel or raises.  The reference's lane padding to a multiple of 8 (a
+Mosaic tile rule) is gone: the ragged kernel masks the column edge itself.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from .. import _build
 from ..convert import table
 from ..field import babybear as bb
 
-B = 128
-LOG_B = 7
-T_MAX = 11  # most butterfly levels of one pass of the whole-transform kernel
+MIN_LOG_N = 7  # ntt.dif runs smaller transforms in its plain stage loop
+T_MAX = 11  # most butterfly levels of one pass
+TILE_WORDS = 1 << 14  # most words of a ragged tile (64 KB), R_TILE_WORDS
+RAGGED_THREADS = 256  # threads of a ragged block (R_THREADS), a lane each
+L2_WORDS = 50 << 18  # the H100's 50 MB L2 cache in words
 
 # ---------------------------------------------------------------------------
-# Host tables (own copies of the reference's, cached per shape)
+# Pass geometry (the kernels' own, computed again on the host)
 # ---------------------------------------------------------------------------
-
-
-def _dft_matrix(root: int, size: int) -> np.ndarray:
-    """[size, size] canonical u32: D[u, i] = root^(u*i) mod p."""
-    pw = np.ones(size, dtype=np.uint64)
-    for k in range(1, size):
-        pw[k] = pw[k - 1] * root % bb.P
-    exps = (np.arange(size, dtype=np.uint64)[:, None]
-            * np.arange(size, dtype=np.uint64)[None, :]) % size
-    return pw[exps.astype(np.int64)].astype(np.uint32)
-
-
-@functools.lru_cache(maxsize=None)
-def _step_dft(log_len: int, inverse: bool, radix_log: int) -> np.ndarray:
-    """[128, 128] canonical DFT matrix of a radix-2^radix_log step of the
-    order-2^log_len transform, embedded at full width as kron(D_R, I_rep)
-    (rep = 128/R), with output rows in bit-reversed order."""
-    from .ntt import bitrev_indices
-
-    size = 1 << radix_log
-    rep = B // size
-    w = bb.two_adic_generator(log_len)
-    if inverse:
-        w = bb.h_inv(w)
-    w_b = pow(w, (1 << log_len) // size, bb.P)
-    d = _dft_matrix(w_b, size).astype(np.uint64)
-    d = d[bitrev_indices(radix_log)]
-    if rep > 1:
-        d = np.kron(d, np.eye(rep, dtype=np.uint64))
-    return d
-
-
-@functools.lru_cache(maxsize=None)
-def _tail_dft(inverse: bool) -> np.ndarray:
-    """[128, 128] canonical matrix of the final (M = 1) 128-point step."""
-    from .ntt import bitrev_indices
-
-    w = bb.two_adic_generator(LOG_B)
-    if inverse:
-        w = bb.h_inv(w)
-    d = _dft_matrix(w, B).astype(np.uint64)
-    return d[bitrev_indices(LOG_B)]
-
-
-@functools.lru_cache(maxsize=None)
-def _step_twiddles(log_len: int, inverse: bool, radix_log: int) -> np.ndarray:
-    """Montgomery table [M4, 128] in _step_dft's embedded row order: row
-    a*rep + s at position t holds w^(rev(a) * (s*M4 + t)), M4 = 2^(log_len-7)."""
-    from .ntt import _powers_host, bitrev_indices
-
-    size = 1 << radix_log
-    rep = B // size
-    m4 = 1 << (log_len - LOG_B)
-    w = bb.two_adic_generator(log_len)
-    if inverse:
-        w = bb.h_inv(w)
-    rev = bitrev_indices(radix_log)
-    rows = []
-    for a in range(size):
-        wu = pow(w, int(rev[a]), bb.P)
-        row_base = _powers_host(wu, m4).astype(np.uint64)  # w^(u*t)
-        for s in range(rep):
-            scale = np.uint64(pow(wu, s * m4, bb.P))
-            rows.append(row_base * scale % np.uint64(bb.P))
-    tw = np.stack(rows)
-    return ((tw.T << 32) % np.uint64(bb.P)).astype(np.uint32)
-
-
-def _radix_schedule(log_n: int) -> list:
-    """Per-step level counts, remainder first, so the last (twiddle-free,
-    M = 1) step is always a full 2^7-point transform."""
-    r0 = log_n % LOG_B
-    return ([r0] if r0 else []) + [LOG_B] * (log_n // LOG_B)
-
-
-def _mega_supported(log_n: int, rest_n: int) -> bool:
-    """Shapes the whole-transform kernel takes (the reference's routing)."""
-    return log_n >= 2 * LOG_B and rest_n % 128 == 0 and rest_n <= 2048
-
-
-def _steps(log_n: int):
-    """[(blocks, log_len, radix_log, last)] of the schedule."""
-    out, blocks, log_len = [], 1, log_n
-    schedule = _radix_schedule(log_n)
-    for i, radix_log in enumerate(schedule):
-        out.append((blocks, log_len, radix_log, i == len(schedule) - 1))
-        blocks <<= radix_log
-        log_len -= radix_log
-    return out
 
 
 def _pass_levels(log_n: int, t_max: int = T_MAX) -> list:
-    """Level counts of the whole-transform kernel's passes: the fewest
-    passes of at most t_max levels, as even as they go, the larger first
-    (csrc/ntt.cu::ntt_dif_whole_launch computes the same split)."""
+    """Level counts of both kernels' passes: the fewest passes of at most
+    t_max levels, as even as they go, the larger first (csrc/ntt.cu's
+    launchers compute the same split)."""
     k = -(-log_n // t_max)
     base, extra = divmod(log_n, k)
     return [base + 1] * extra + [base] * (k - extra)
+
+
+def _column_groups(rest_n: int, t: int) -> list:
+    """[(c0, width)] of the ragged kernel's column groups in a pass of t
+    levels: the fewest groups of at most min(TILE_WORDS >> t,
+    RAGGED_THREADS) columns, as even as they go, the last one narrower
+    where the width does not divide (csrc/ntt.cu::ragged_columns)."""
+    c_max = min(TILE_WORDS >> t, RAGGED_THREADS)
+    k = -(-rest_n // c_max)
+    cols = -(-rest_n // k)
+    return [(c0, min(cols, rest_n - c0)) for c0 in range(0, rest_n, cols)]
+
+
+def _ragged_t_max(log_n: int, rest_n: int) -> int:
+    """Most levels of a ragged pass.  A row piece that starts inside a
+    32-byte sector moves a sector more than it holds; unless a row is a
+    multiple of 8 words, every piece narrower than a row does.  Once the
+    array outgrows the L2 cache, tiles of whole rows (2^t x rest_n <=
+    TILE_WORDS) pay for one pass more: on the H100 three passes of whole
+    rows beat two of pieces at 2^19 and 2^20 rows x 51, 79 and 100 columns,
+    and lost at widths 10, 32, 64 and 200 and at 2^16 and 2^17 rows
+    (experiments/kernel_experiments.py)."""
+    if rest_n % 8 == 0 or rest_n << log_n <= L2_WORDS:
+        return T_MAX
+    t = min(T_MAX, (TILE_WORDS // rest_n).bit_length() - 1)
+    if t >= 1 and -(-log_n // t) <= -(-log_n // T_MAX) + 1:
+        return t
+    return T_MAX
 
 
 def _pass_twiddle_index(log_n: int, s0: int, t: int, lv: int,
@@ -172,50 +105,15 @@ def _pass_twiddle_index(log_n: int, s0: int, t: int, lv: int,
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions (exact; any device)
+# Plain PyTorch version (exact; any device)
 # ---------------------------------------------------------------------------
 
 
-def _mod_matmul_plain(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(D @ x) mod p over axis -2, as int64 in [0, p).
-
-    The contraction runs as float64 products of D (< 2^31) with 11-bit
-    limbs of x: every partial sum stays below 128·2^31·2^11 = 2^49 < 2^53,
-    so each product is exact on any device (integer matmul has no CUDA
-    implementation)."""
-    dd = d.to(torch.float64)
-    xl = x.to(torch.int64)
-    acc = None
-    for shift in (0, 11, 22):
-        limb = ((xl >> shift) & 0x7FF).to(torch.float64)
-        part = torch.matmul(dd, limb).to(torch.int64) % bb.P
-        part = part * ((1 << shift) % bb.P) % bb.P
-        acc = part if acc is None else (acc + part) % bb.P
-    return acc
-
-
-def step_plain(x3: torch.Tensor, d: torch.Tensor, tw: torch.Tensor,
-               rest_n: int) -> torch.Tensor:
-    """One non-final step on x3 [blocks, 128, M4·rest_n]: the modular
-    product with d [128,128], then the Montgomery twiddle tw [M4, 128]."""
-    blocks, _, cols = x3.shape
-    m4 = cols // rest_n
-    y = _mod_matmul_plain(d, x3).view(blocks, B, m4, rest_n)
-    t = tw.to(torch.int64).t().reshape(1, B, m4, 1)
-    y = y * t % bb.P * bb.R_INV % bb.P
-    return y.reshape(blocks, B, cols).to(torch.int32)
-
-
-def tail_plain(x3: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """The final step on x3 [blocks, 128, rest_n]: blockwise 128-point
-    transforms, no twiddle."""
-    return _mod_matmul_plain(d, x3).to(torch.int32)
-
-
-def dif_whole_plain(a: torch.Tensor, log_n: int, inverse: bool,
-                    t_max: int = T_MAX) -> torch.Tensor:
-    """Plain version of the whole-transform kernel, pass by pass as the
-    kernel runs them: a [n, rest_n]."""
+def dif_passes_plain(a: torch.Tensor, log_n: int, inverse: bool,
+                     t_max: int = T_MAX) -> torch.Tensor:
+    """Plain version of both kernels, pass by pass as they run them:
+    a [n, rest_n] of any width (columns are independent, so the column
+    groups of a pass need no counterpart here)."""
     from .ntt import _root_powers
 
     n, rest_n = a.shape
@@ -241,38 +139,12 @@ def dif_whole_plain(a: torch.Tensor, log_n: int, inverse: bool,
 # ---------------------------------------------------------------------------
 
 
-def step(x3: torch.Tensor, d: torch.Tensor, tw: torch.Tensor,
-         rest_n: int) -> torch.Tensor:
-    if x3.device.type == "cpu":
-        return step_plain(x3, d, tw, rest_n)
-    blocks, _, cols = x3.shape
-    _build.check_input(x3, "ntt_step x", (blocks, B, cols))
-    _build.check_input(d, "ntt_step d", (B, B))
-    _build.check_input(tw, "ntt_step tw", (cols // rest_n, B))
-    y = torch.empty_like(x3)
-    _build.launch("ntt", "ntt_step_launch", x3, y, d, tw, blocks, cols, rest_n)
-    _build.LAUNCHES["ntt_step"] += 1
-    return y
-
-
-def tail(x3: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    if x3.device.type == "cpu":
-        return tail_plain(x3, d)
-    blocks, _, cols = x3.shape
-    _build.check_input(x3, "ntt_tail x", (blocks, B, cols))
-    _build.check_input(d, "ntt_tail d", (B, B))
-    y = torch.empty_like(x3)
-    _build.launch("ntt", "ntt_tail_launch", x3, y, d, blocks, cols)
-    _build.LAUNCHES["ntt_tail"] += 1
-    return y
-
-
 def dif_whole(a: torch.Tensor, log_n: int, inverse: bool,
               t_max: int = T_MAX) -> torch.Tensor:
     """The whole DIF of a [n, rest_n], rest_n a multiple of 128, through
     one call of the kernel's entry (a launch per pass)."""
     if a.device.type == "cpu":
-        return dif_whole_plain(a, log_n, inverse, t_max)
+        return dif_passes_plain(a, log_n, inverse, t_max)
     from .ntt import _root_powers
 
     rest_n = a.shape[1]
@@ -289,48 +161,48 @@ def dif_whole(a: torch.Tensor, log_n: int, inverse: bool,
     return out
 
 
+def dif_ragged(a: torch.Tensor, log_n: int, inverse: bool,
+               t_max: int | None = None) -> torch.Tensor:
+    """The whole DIF of a [n, rest_n] of any width through one call of the
+    kernel's entry (a launch per pass); t_max by default `_ragged_t_max`."""
+    rest_n = a.shape[1]
+    if t_max is None:
+        t_max = _ragged_t_max(log_n, rest_n)
+    if a.device.type == "cpu":
+        return dif_passes_plain(a, log_n, inverse, t_max)
+    from .ntt import _root_powers
+
+    _build.check_input(a, "ntt_dif_ragged x", (1 << log_n, rest_n))
+    if rest_n < 1 or not 1 <= t_max <= T_MAX:
+        raise ValueError(f"ntt_dif_ragged: expected 1 <= t_max <= {T_MAX} "
+                         f"and a column, got width {rest_n}, t_max {t_max}")
+    pw = table(_root_powers, log_n, inverse, device=a.device)
+    out = torch.empty_like(a)
+    _build.launch("ntt", "ntt_dif_ragged_launch", a, out, pw, log_n, rest_n,
+                  t_max)
+    _build.LAUNCHES["ntt_dif_ragged"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public transform
 # ---------------------------------------------------------------------------
 
 
-def _run_steps(a, log_n, inverse, step_fn, tail_fn):
-    n, rest_n = a.shape
-    for blocks, log_len, radix_log, last in _steps(log_n):
-        if last:
-            d = table(_tail_dft, inverse, device=a.device)
-            a = tail_fn(a.reshape(blocks, B, rest_n), d)
-        else:
-            d = table(_step_dft, log_len, inverse, radix_log, device=a.device)
-            tw = table(_step_twiddles, log_len, inverse, radix_log,
-                       device=a.device)
-            m4 = 1 << (log_len - LOG_B)
-            a = step_fn(a.reshape(blocks, B, m4 * rest_n), d, tw, rest_n)
-    return a.reshape(n, rest_n)
-
-
-def _dif(a, inverse, whole_fn, step_fn, tail_fn):
-    n = int(a.shape[0])
-    log_n = n.bit_length() - 1
-    if 1 << log_n != n or log_n < LOG_B:
-        raise ValueError("radix_ntt.dif needs a power-of-two length >= 128")
-    rest = tuple(a.shape[1:])
-    a2 = a.reshape(n, -1).contiguous()
-    if _mega_supported(log_n, a2.shape[1]):
-        out = whole_fn(a2, log_n, inverse)
-    else:
-        out = _run_steps(a2, log_n, inverse, step_fn, tail_fn)
-    return out.reshape((n,) + rest)
+def _pass_kernel(rest_n: int):
+    """The wrapper that runs a width: the whole-width kernel's 16-byte
+    units need a multiple of 128 columns, the ragged one takes the rest."""
+    return dif_whole if rest_n % 128 == 0 else dif_ragged
 
 
 def dif(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Natural-in, bitrev-out DIF over axis 0; bit-identical to ntt.dif.
 
     a: int32 [N, ...] Montgomery form, N a power of two >= 128.  Widths
-    the whole-transform kernel takes go there; the rest run step by step."""
-    return _dif(a, inverse, dif_whole, step, tail)
-
-
-def dif_plain(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
-    """`dif` through the plain versions only, on any device."""
-    return _dif(a, inverse, dif_whole_plain, step_plain, tail_plain)
+    that are a multiple of 128 run ntt_dif_whole, the rest ntt_dif_ragged."""
+    n = int(a.shape[0])
+    log_n = n.bit_length() - 1
+    if 1 << log_n != n or log_n < MIN_LOG_N:
+        raise ValueError("radix_ntt.dif needs a power-of-two length >= 128")
+    a2 = a.reshape(n, -1).contiguous()
+    return _pass_kernel(a2.shape[1])(a2, log_n, inverse).reshape(a.shape)
