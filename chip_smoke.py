@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive valida_tpu_torch's trace commit and PCS proof on one CUDA GPU and
-hold every kernel against its plain PyTorch version.
+"""Drive valida_tpu_torch's trace commit, PCS proof and machine prover on
+one CUDA GPU and hold every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -28,9 +28,23 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    (d) Poseidon2 trees, 2^19 x 128 and 2^16 x 51, then 2^19 x 10,
    (d') the same at 2^16 x 128, 2^13 x 51 and 2^16 x 10,
    (e) (d')'s shape with Keccak trees;
+   then four machine proofs through `Machine.prove` on the card and
+   `Machine.verify` on the host, with the same counters and recorded calls:
+   (m) `random_mini_machine(48, seed=3)`, the golden fixture's machine and
+       config, whose proof must serialize to the bytes of
+       tests/fixtures/mini_proof_v1.cbor;
+   (f') `random_ragged_machine(2^14, seed=7)` under `default_config()` and
+   (g') the same with Poseidon2 trees, each proof's serialized bytes held to
+       the SHA-256 of the JAX package's;
+   (f) `random_ragged_machine(2^20, seed=7)` under `default_config()`
+       (heights 2^20, 2^17, 16, 1; debug checks on): its preprocessed and
+       main-trace roots held to the JAX package's, and a changed opened
+       trace value and a changed cumulative sum each rejected with the
+       error class the JAX package's verifier raises;
 5. times each kernel at the main path's shapes with CUDA events, beside its
-   bound and its plain version, and times commits (b) and (c), the NTT and
-   (d)'s commit and opening, each with a profile;
+   bound and its plain version, and times commits (b) and (c), the NTT,
+   (d)'s commit and opening, and (f)'s prove (median of 5, by stage) and
+   verify, each with a profile;
 6. prints one JSON line of kernels, then the device line last.
 Any mismatch, build failure or launch error raises: the exit code is then
 non-zero and the last line is not printed.  With no GPU it exits 1.
@@ -38,6 +52,7 @@ non-zero and the last line is not printed.  With no GPU it exits 1.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -47,6 +62,7 @@ import time
 import numpy as np
 
 P = 2013265921
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # 32-bit integer add, logic, shift and multiply results per clock per SM on
 # compute capability 9.0 (64 INT32 units per SM: NVIDIA H100 architecture
@@ -164,6 +180,63 @@ PCS_GOLDEN = {
     },
 }
 
+# the machine proofs of the main path: random_ragged_machine(2^log_pairs,
+# seed=7) under default_config(hasher=...), and the kernels each must and
+# must not launch.  (m) is the golden fixture's machine and config.
+MACHINE_PATHS = {
+    "m": (None, "keccak", ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
+    "f'": (14, "keccak", ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
+    "g'": (14, "poseidon2", ("poseidon2", "ntt_dif_ragged"), ("keccak256",)),
+    "f": (20, "keccak", ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
+}
+FIXTURE = "tests/fixtures/mini_proof_v1.cbor"
+# SHA-256 of the serialized proofs of (f') and (g') as the JAX package's
+# numpy path makes them (tests/test_torch_machine.py::
+# reference_machine_digest), and (f)'s preprocessed and main-trace roots
+# (::reference_machine_roots)
+MACHINE_GOLDEN = {
+    "f'": "a39bfd949f99556153d5e7e38933031ecaf42575767c1bd9b969e21095b73579",
+    "g'": "dbed0c5628f19d5c2b0e09da52dd8a3f7db033a99eba31d974a07dd14db0c086",
+}
+F_ROOTS = [
+    "8faf36969aa9c1be23d84d92e1fcc7eeabee1d3f07acd4d2e67796bda7910e7c",
+    "dbb207f4e5635f7d882c16ec684487c4d1d6dfdbcd4005f9975dce574cb26e8b",
+]
+
+
+def _tamper_opened_trace_value(proof):
+    """A copy of a machine proof of either package with the first opened
+    trace value of the first chip changed."""
+    import copy
+
+    bad = copy.deepcopy(proof)
+    vals = bad.chip_proofs[0].opened_values.trace_local
+    v = list(vals[0])
+    v[0] = (v[0] + 1) % P
+    vals[0] = tuple(v)
+    return bad
+
+
+def _tamper_cumulative_sum(proof):
+    """A copy with the first chip's cumulative sum changed."""
+    import copy
+
+    bad = copy.deepcopy(proof)
+    cs = list(bad.chip_proofs[0].cumulative_sum)
+    cs[0] = (cs[0] + 1) % P
+    bad.chip_proofs[0].cumulative_sum = tuple(cs)
+    return bad
+
+
+# the tampers of path (f) and the VerificationError subclass the JAX
+# package's verifier raises for each (tests/test_torch_machine.py holds
+# both packages to it at a small size)
+TAMPERS = {
+    "opened trace value": (_tamper_opened_trace_value,
+                           "InvalidOpeningArgument"),
+    "cumulative sum": (_tamper_cumulative_sum, "OodEvaluationMismatch"),
+}
+
 
 def _u32_words(items) -> np.ndarray:
     parts = [np.asarray(x, dtype=np.uint32).reshape(-1) for x in items]
@@ -183,8 +256,6 @@ def proof_digest(opened, proof) -> dict:
     witness, the direct-opened polynomials, then per query the input
     openings (opened rows, then the path) of every round and the
     commit-phase openings (pair row, then the path) of every layer."""
-    import hashlib
-
     fri = proof.fri
     items = list(fri.commit_phase_commits)
     items += [fri.final_poly, fri.pow_witness]
@@ -274,16 +345,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from valida_tpu_torch import _build
+    sys.path.insert(0, ROOT)
+    from valida_tpu_torch import _build, utils
     from valida_tpu_torch.commit.fri import FriConfig, FriError
     from valida_tpu_torch.commit.lde_commit import commit_forward
     from valida_tpu_torch.commit.pcs import TwoAdicFriPcs
     from valida_tpu_torch.convert import table, to_int32_bits, to_numpy
     from valida_tpu_torch.crypto import keccak
     from valida_tpu_torch.crypto import poseidon2 as p2
+    from valida_tpu_torch.core.config import default_config
     from valida_tpu_torch.crypto.challenger import DuplexChallenger
+    from valida_tpu_torch.machine import examples
+    from valida_tpu_torch.machine.verifier import VerificationError
     from valida_tpu_torch.poly import ntt, radix_ntt
+    from valida_tpu_torch.tooling.serde import (deserialize_proof,
+                                                serialize_proof)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -576,6 +652,69 @@ def main() -> int:
         if path == "d":
             pcs_state = dict(pcs=pcs, mats=mats, points=points, rounds=rounds)
 
+    # the machine proofs: (m) the golden fixture, (f') and (g') pinned whole
+    # proofs, (f) the full-width ragged machine; proved on the card through
+    # Machine.prove, verified by the port's host verifier
+    machine_state = {}
+    for path, (log_pairs, hasher, needed, forbidden) in MACHINE_PATHS.items():
+        if path == "m":
+            machine = examples.random_mini_machine(48, seed=3)
+            cfg = default_config(num_queries=3, proof_of_work_bits=1)
+            what = "machine (m) random_mini_machine(48, seed=3)"
+        else:
+            machine = examples.random_ragged_machine(1 << log_pairs, seed=7)
+            cfg = default_config(hasher=hasher)
+            what = (f"machine ({path}) random_ragged_machine(2^{log_pairs}, "
+                    f"seed=7) {hasher}")
+        t0 = time.perf_counter()
+        proof, launches[path] = run_recorded(
+            what, needed, forbidden, lambda: machine.prove(cfg), sample=True)
+        t_prove = time.perf_counter() - t0
+        blob = serialize_proof(proof)
+        digest = hashlib.sha256(blob).hexdigest()
+        t0 = time.perf_counter()
+        machine.verify(cfg, proof)
+        t_verify = time.perf_counter() - t0
+        log(f"{what}: log-degrees {[cp.log_degree for cp in proof.chip_proofs]}"
+            f", proved (launches recorded) in {t_prove:.1f} s, verified on "
+            f"the host in {t_verify:.2f} s, {len(blob)} bytes, sha256 {digest}")
+        if path == "m":
+            with open(os.path.join(ROOT, FIXTURE), "rb") as f:
+                want = f.read()
+            if blob != want:
+                raise RuntimeError(f"{what}: the proof's bytes differ from "
+                                   f"{FIXTURE}")
+            machine.verify(cfg, deserialize_proof(want))
+            log(f"{what}: bytes == {FIXTURE}, which the port verifies")
+        elif path in MACHINE_GOLDEN:
+            if digest != MACHINE_GOLDEN[path]:
+                raise RuntimeError(f"{what}: sha256 is {digest}, the JAX "
+                                   f"package's is {MACHINE_GOLDEN[path]}")
+            log(f"{what}: sha256 == JAX package's")
+        else:
+            roots = [words_hex(proof.commitments.preprocessed),
+                     words_hex(proof.commitments.main_trace)]
+            if roots != F_ROOTS:
+                raise RuntimeError(f"{what}: preprocessed and main roots "
+                                   f"{roots}, the JAX package's {F_ROOTS}")
+            log(f"{what}: preprocessed and main-trace roots == JAX "
+                f"package's")
+            for case, (tamper, expected) in TAMPERS.items():
+                try:
+                    machine.verify(cfg, tamper(proof))
+                except VerificationError as e:
+                    if type(e).__name__ != expected:
+                        raise RuntimeError(
+                            f"{what}: a changed {case} raised "
+                            f"{type(e).__name__}, the JAX package's verifier "
+                            f"raises {expected}") from e
+                    log(f"{what}: a changed {case} is rejected: "
+                        f"{type(e).__name__}: {e}")
+                else:
+                    raise RuntimeError(f"{what}: a changed {case} was "
+                                       f"accepted")
+            machine_state = dict(machine=machine, cfg=cfg, proof=proof)
+
     # 5. timings at the main path's shapes
     kernels = []
 
@@ -693,8 +832,13 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name, n_ops = {}, 0
+        # a record_function range (the prover's stages) also shows on the
+        # device's timeline, spanning the kernels inside it: its name is
+        # that of a host event, which no kernel's is
+        host_names = {e.name for e in prof.events()
+                      if e.device_type == DeviceType.CPU}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and e.name not in host_names:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
                 n_ops += 1
         ours = {k: sum(t for name, t in by_name.items()
@@ -711,6 +855,18 @@ def main() -> int:
               f"{(busy - sum(ours.values())) / 1e3:.3f}")
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"  {t / 1e3:9.3f} ms  {name[:110]}")
+        # by stage: each range's span on the device's timeline and the
+        # device time of the kernels that start inside it
+        kernels = [(e.time_range.start, e.device_time_total)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name not in host_names]
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.name in host_names:
+                t0, t1 = e.time_range.start, e.time_range.end
+                inside = sum(t for s, t in kernels if t0 <= s < t1)
+                log(f"  stage {e.name}: span {(t1 - t0) / 1e3:.3f} ms on the "
+                    f"device's timeline, device busy {inside / 1e3:.3f} ms")
 
     for shape in [(19, 128), (19, 51)]:
         profile_run(f"commit 2^{shape[0]} x {shape[1]}",
@@ -752,6 +908,29 @@ def main() -> int:
         f" ms, all " + " ".join(f"{t:.3f}" for t in opens))
     profile_run("pcs (d) commit_batches", commit_d)
     profile_run("pcs (d) open_multi_batches", open_d)
+
+    # path (f): the machine prover at 2^20 pairs, warm.  The host clock
+    # spreads: the median of 5 proofs beside the best; then one proof with
+    # the stage collection (each stage waits for the card at its end) and
+    # one under the profiler
+    machine, cfg = machine_state["machine"], machine_state["cfg"]
+    proves = wall_ms(lambda: machine.prove(cfg), 5)
+    log(f"machine (f) prove wall-clock: best {min(proves):.3f} ms, median "
+        f"of {len(proves)} {sorted(proves)[len(proves) // 2]:.3f} ms, all "
+        + " ".join(f"{t:.3f}" for t in proves))
+    utils.start_stage_collection()
+    t0 = time.perf_counter()
+    machine.prove(cfg)
+    t_staged = (time.perf_counter() - t0) * 1e3
+    stages = utils.stop_stage_collection()
+    log(f"machine (f) prove by stage (host wall-clock, the card synchronised "
+        f"at each stage's end; {t_staged:.3f} ms in all): "
+        + ", ".join(f"{k} {v['s'] * 1e3:.3f} ms" for k, v in stages.items())
+        + f"; outside the stages {t_staged - sum(v['s'] for v in stages.values()) * 1e3:.3f} ms")
+    profile_run("machine (f) prove", lambda: machine.prove(cfg))
+    verifies = wall_ms(lambda: machine.verify(cfg, machine_state["proof"]), 3)
+    log(f"machine (f) verify wall-clock (host): best {min(verifies):.3f} ms, "
+        f"all " + " ".join(f"{t:.3f}" for t in verifies))
 
     # 6. results
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,7 +16,12 @@ def from_reference(arr, device="cpu") -> torch.Tensor:
             raise ValueError("values do not fit in u32")
         a = a.astype(np.uint32)
     a = np.ascontiguousarray(a)
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    t = torch.from_numpy(a.view(np.int32).copy())
+    if torch.device(device).type == "cuda":
+        # from page-locked memory the copy is queued behind the device's
+        # work instead of waiting for it
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -110,3 +115,60 @@ def proof_to_reference(proof, ref_fri, ref_pcs):
     """This package's PcsProof -> the JAX package's, whose modules
     commit.fri and commit.pcs the caller passes in."""
     return _rebuild_proof(proof, ref_fri, ref_pcs)
+
+
+# ---------------------------------------------------------------------------
+# Machine proofs across the two packages
+# ---------------------------------------------------------------------------
+#
+# Machines are carried across by building them from the same seed in each
+# package; their proofs by the two functions below, field by field.
+
+
+def _rebuild_machine_proof(proof, proof_mod, fri_mod, pcs_mod):
+    def ext(e):
+        return tuple(int(x) for x in e)
+
+    def exts(vals):
+        return [ext(v) for v in vals]
+
+    c = proof.commitments
+    commitments = proof_mod.Commitments(
+        preprocessed=np.array(c.preprocessed, dtype=np.uint32),
+        main_trace=np.array(c.main_trace, dtype=np.uint32),
+        perm_trace=np.array(c.perm_trace, dtype=np.uint32),
+        quotient_chunks=np.array(c.quotient_chunks, dtype=np.uint32))
+    chip_proofs = []
+    for cp in proof.chip_proofs:
+        ov = cp.opened_values
+        chip_proofs.append(proof_mod.ChipProof(
+            log_degree=int(cp.log_degree),
+            opened_values=proof_mod.OpenedValues(
+                preprocessed_local=exts(ov.preprocessed_local),
+                preprocessed_next=exts(ov.preprocessed_next),
+                trace_local=exts(ov.trace_local),
+                trace_next=exts(ov.trace_next),
+                permutation_local=exts(ov.permutation_local),
+                permutation_next=exts(ov.permutation_next),
+                quotient_chunks=exts(ov.quotient_chunks)),
+            cumulative_sum=ext(cp.cumulative_sum)))
+    return proof_mod.MachineProof(
+        commitments=commitments,
+        opening_proof=_rebuild_proof(proof.opening_proof, fri_mod, pcs_mod),
+        chip_proofs=chip_proofs)
+
+
+def machine_proof_from_reference(proof):
+    """A MachineProof of the JAX package -> this package's MachineProof."""
+    from .commit import fri, pcs
+    from .core import proof as proof_mod
+
+    return _rebuild_machine_proof(proof, proof_mod, fri, pcs)
+
+
+def machine_proof_to_reference(proof, ref_modules):
+    """This package's MachineProof -> the JAX package's.  ref_modules is
+    the JAX package's (core.proof, commit.fri, commit.pcs) modules, which
+    the caller passes in."""
+    proof_mod, fri_mod, pcs_mod = ref_modules
+    return _rebuild_machine_proof(proof, proof_mod, fri_mod, pcs_mod)

@@ -7,8 +7,12 @@ first.  Host scalars are 5-tuples of canonical python ints.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from ..convert import from_reference, table
 from . import babybear as bb
 
 D = 5  # extension degree
@@ -45,6 +49,12 @@ _EM_J = [(k - i) % D for k in range(D) for i in range(D)]
 _EM_OVF = [i + ((k - i) % D) >= D for k in range(D) for i in range(D)]
 
 
+@functools.lru_cache(maxsize=None)
+def _em_factor() -> np.ndarray:
+    """2 at the wrapped pairs of `_EM_OVF`, 1 elsewhere."""
+    return np.array([2 if o else 1 for o in _EM_OVF], dtype=np.uint32)
+
+
 def ext_mul(a, b):
     """Product modulo x^5 - W: c_k = sum_{i+j=k} a_i b_j + W sum_{i+j=k+5}
     a_i b_j.  Each of the 25 products is reduced below p, so a doubled
@@ -53,8 +63,7 @@ def ext_mul(a, b):
     a, b = torch.broadcast_tensors(a, b)
     prod = (a[..., _EM_I].to(torch.int64) * b[..., _EM_J].to(torch.int64)
             % bb.P)
-    ovf = torch.tensor(_EM_OVF, device=prod.device)
-    prod = torch.where(ovf, 2 * prod, prod)
+    prod = prod * table(_em_factor, device=prod.device)
     c = prod.reshape(prod.shape[:-1] + (D, D)).sum(dim=-1)
     return (c % bb.P * bb.R_INV % bb.P).to(torch.int32)
 
@@ -91,9 +100,13 @@ _FROB_COEFFS = [pow(_FROB_BASE, i, bb.P) for i in range(D)]
 _FROB_COEFFS_MONTY = [bb.monty_scalar(c) for c in _FROB_COEFFS]
 
 
+@functools.lru_cache(maxsize=None)
+def _frob_monty() -> np.ndarray:
+    return np.array(_FROB_COEFFS_MONTY, dtype=np.uint32)
+
+
 def frobenius(a):
-    return bb.mul(a, torch.tensor(_FROB_COEFFS_MONTY, dtype=torch.int32,
-                                  device=a.device))
+    return bb.mul(a, table(_frob_monty, device=a.device))
 
 
 def ext_inv(a):
@@ -117,8 +130,8 @@ def ext_from_base(a):
 
 def ext_const(e, device) -> torch.Tensor:
     """Host ext scalar (canonical 5-tuple) -> Montgomery int32 [5]."""
-    return torch.tensor([bb.monty_scalar(int(c) % bb.P) for c in e],
-                        dtype=torch.int32, device=device)
+    return from_reference(np.array([bb.monty_scalar(int(c) % bb.P)
+                                    for c in e], dtype=np.uint32), device)
 
 
 # ---------------------------------------------------------------------------
