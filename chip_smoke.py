@@ -41,10 +41,20 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
        main-trace roots held to the JAX package's, and a changed opened
        trace value and a changed cumulative sum each rejected with the
        error class the JAX package's verifier raises;
+   then three BasicMachine (Valida VM) programs, interpreted on the host
+   and proved on the card under `default_config()`, with the same
+   counters and recorded calls:
+   (n) fib(25), with its interpreter profile (clock 192, 401 memory
+       operations, 105 adds, fib(25) at fp + 4), its proof's bytes held to
+       the SHA-256 of the JAX package's;
+   (h') the ALU loop at 2^13 cycles, likewise;
+   (h) the ALU loop at 2^20 cycles (the "alu_u32 full ISA trace"): its
+       preprocessed and main-trace roots held to the JAX package's, the
+       port's verifier, and the two tampers of (f);
 5. times each kernel at the main path's shapes with CUDA events, beside its
    bound and its plain version, and times commits (b) and (c), the NTT,
-   (d)'s commit and opening, and (f)'s prove (median of 5, by stage) and
-   verify, each with a profile;
+   (d)'s commit and opening, and (f)'s and (h)'s prove (median of 5, by
+   stage, memory peak) and verify, each with a profile;
 6. prints one JSON line of kernels, then the device line last.
 Any mismatch, build failure or launch error raises: the exit code is then
 non-zero and the last line is not printed.  With no GPU it exits 1.
@@ -201,6 +211,29 @@ MACHINE_GOLDEN = {
 F_ROOTS = [
     "8faf36969aa9c1be23d84d92e1fcc7eeabee1d3f07acd4d2e67796bda7910e7c",
     "dbb207f4e5635f7d882c16ec684487c4d1d6dfdbcd4005f9975dce574cb26e8b",
+]
+
+
+# the BasicMachine programs of the main path: the program (fib(25), the
+# Rust reference's basic/tests/test_prover.rs program, or the ALU loop of
+# 2^k cycles, alu_loop_program(2^k // 14) as benchmarks/big_trace.py) and
+# the kernels each must and must not launch
+BASIC_PATHS = {
+    "n": ("fib", ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
+    "h'": (13, ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
+    "h": (20, ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
+}
+# SHA-256 of the serialized proofs of (n) and (h') under default_config()
+# as the JAX package's numpy path makes them (tests/test_torch_basic.py::
+# reference_basic_digest("fib" / "alu_loop_13", "default")), and (h)'s
+# preprocessed and main-trace roots (::reference_basic_roots(20))
+BASIC_GOLDEN = {
+    "n": "5d802fc413fa21a9b8787c60064927ceafeeca2151cfc1111fe2f5d341a6247d",
+    "h'": "7171efd7a498a0a624e853f4058481fbb3c29a6a982b49f5241f3e8df55f87b7",
+}
+H_ROOTS = [
+    "dfc416a5150a9c2007d4b56131dbb0e8bbefea1237284931fcd604f382132751",
+    "3d2555748ffa293ffaff1a4a4dce23ed2015c28c0ecf27c9444e5d49bbf311a6",
 ]
 
 
@@ -652,6 +685,21 @@ def main() -> int:
         if path == "d":
             pcs_state = dict(pcs=pcs, mats=mats, points=points, rounds=rounds)
 
+    def check_tampers(what, machine, cfg, proof):
+        for case, (tamper, expected) in TAMPERS.items():
+            try:
+                machine.verify(cfg, tamper(proof))
+            except VerificationError as e:
+                if type(e).__name__ != expected:
+                    raise RuntimeError(
+                        f"{what}: a changed {case} raised "
+                        f"{type(e).__name__}, the JAX package's verifier "
+                        f"raises {expected}") from e
+                log(f"{what}: a changed {case} is rejected: "
+                    f"{type(e).__name__}: {e}")
+            else:
+                raise RuntimeError(f"{what}: a changed {case} was accepted")
+
     # the machine proofs: (m) the golden fixture, (f') and (g') pinned whole
     # proofs, (f) the full-width ragged machine; proved on the card through
     # Machine.prove, verified by the port's host verifier
@@ -699,21 +747,64 @@ def main() -> int:
                                    f"{roots}, the JAX package's {F_ROOTS}")
             log(f"{what}: preprocessed and main-trace roots == JAX "
                 f"package's")
-            for case, (tamper, expected) in TAMPERS.items():
-                try:
-                    machine.verify(cfg, tamper(proof))
-                except VerificationError as e:
-                    if type(e).__name__ != expected:
-                        raise RuntimeError(
-                            f"{what}: a changed {case} raised "
-                            f"{type(e).__name__}, the JAX package's verifier "
-                            f"raises {expected}") from e
-                    log(f"{what}: a changed {case} is rejected: "
-                        f"{type(e).__name__}: {e}")
-                else:
-                    raise RuntimeError(f"{what}: a changed {case} was "
-                                       f"accepted")
+            check_tampers(what, machine, cfg, proof)
             machine_state = dict(machine=machine, cfg=cfg, proof=proof)
+
+    # the BasicMachine: (n) fib(25) and (h') the ALU loop at 2^13 cycles,
+    # whole proofs pinned; (h) the ALU loop at 2^20 cycles, roots pinned.
+    # The interpreter runs on the host; the prover builds the op-log
+    # chips' traces on the card from their uploaded op arrays.
+    basic_state = {}
+    for path, (prog, needed, forbidden) in BASIC_PATHS.items():
+        t0 = time.perf_counter()
+        if prog == "fib":
+            machine = examples.run_program(examples.fib_program(), 0x1000)
+            what = "basic (n) fib(25)"
+            profile = (machine.cpu().clock,
+                       sum(len(v) for v in machine.mem().operations.values()),
+                       len(machine.add_u32().operations),
+                       machine.mem().cells[0x1000 + 4])
+            if profile != (192, 401, 105, 75025):
+                raise RuntimeError(f"{what}: interpreter profile (clock, "
+                                   f"memory ops, adds, fp+4) {profile}, "
+                                   f"expected (192, 401, 105, 75025)")
+        else:
+            machine = examples.run_program(
+                examples.alu_loop_program((1 << prog) // 14), 0x1000000)
+            what = f"basic ({path}) ALU loop 2^{prog} cycles"
+        log(f"{what}: interpreted {machine.cpu().clock} cycles on the host "
+            f"in {time.perf_counter() - t0:.2f} s")
+        cfg = default_config()
+        t0 = time.perf_counter()
+        proof, launches[path] = run_recorded(
+            what, needed, forbidden, lambda: machine.prove(cfg), sample=True)
+        t_prove = time.perf_counter() - t0
+        blob = serialize_proof(proof)
+        digest = hashlib.sha256(blob).hexdigest()
+        t0 = time.perf_counter()
+        machine.verify(cfg, proof)
+        t_verify = time.perf_counter() - t0
+        degrees = {c.name: cp.log_degree
+                   for c, cp in zip(machine.chips(), proof.chip_proofs)}
+        log(f"{what}: log-degrees {degrees}, proved (launches recorded) in "
+            f"{t_prove:.1f} s, verified on the host in {t_verify:.2f} s, "
+            f"{len(blob)} bytes, sha256 {digest}; ntt_dif_whole launched "
+            f"{launches[path]['ntt_dif_whole']} times")
+        if path in BASIC_GOLDEN:
+            if digest != BASIC_GOLDEN[path]:
+                raise RuntimeError(f"{what}: sha256 is {digest}, the JAX "
+                                   f"package's is {BASIC_GOLDEN[path]}")
+            log(f"{what}: sha256 == JAX package's")
+        else:
+            roots = [words_hex(proof.commitments.preprocessed),
+                     words_hex(proof.commitments.main_trace)]
+            if roots != H_ROOTS:
+                raise RuntimeError(f"{what}: preprocessed and main roots "
+                                   f"{roots}, the JAX package's {H_ROOTS}")
+            log(f"{what}: preprocessed and main-trace roots == JAX "
+                f"package's")
+            check_tampers(what, machine, cfg, proof)
+            basic_state = dict(machine=machine, cfg=cfg, proof=proof)
 
     # 5. timings at the main path's shapes
     kernels = []
@@ -909,28 +1000,47 @@ def main() -> int:
     profile_run("pcs (d) commit_batches", commit_d)
     profile_run("pcs (d) open_multi_batches", open_d)
 
-    # path (f): the machine prover at 2^20 pairs, warm.  The host clock
-    # spreads: the median of 5 proofs beside the best; then one proof with
-    # the stage collection (each stage waits for the card at its end) and
-    # one under the profiler
-    machine, cfg = machine_state["machine"], machine_state["cfg"]
-    proves = wall_ms(lambda: machine.prove(cfg), 5)
-    log(f"machine (f) prove wall-clock: best {min(proves):.3f} ms, median "
-        f"of {len(proves)} {sorted(proves)[len(proves) // 2]:.3f} ms, all "
-        + " ".join(f"{t:.3f}" for t in proves))
-    utils.start_stage_collection()
-    t0 = time.perf_counter()
-    machine.prove(cfg)
-    t_staged = (time.perf_counter() - t0) * 1e3
-    stages = utils.stop_stage_collection()
-    log(f"machine (f) prove by stage (host wall-clock, the card synchronised "
-        f"at each stage's end; {t_staged:.3f} ms in all): "
-        + ", ".join(f"{k} {v['s'] * 1e3:.3f} ms" for k, v in stages.items())
-        + f"; outside the stages {t_staged - sum(v['s'] for v in stages.values()) * 1e3:.3f} ms")
-    profile_run("machine (f) prove", lambda: machine.prove(cfg))
-    verifies = wall_ms(lambda: machine.verify(cfg, machine_state["proof"]), 3)
-    log(f"machine (f) verify wall-clock (host): best {min(verifies):.3f} ms, "
-        f"all " + " ".join(f"{t:.3f}" for t in verifies))
+    # paths (f) and (h): the machine prover at full width, warm.  The host
+    # clock spreads: the median of 5 proofs beside the best; then one proof
+    # with the device's memory peak, one with the stage collection (each
+    # stage waits for the card at its end) and one under the profiler
+    def time_machine(what, state, verify_before):
+        machine, cfg = state["machine"], state["cfg"]
+        proves = wall_ms(lambda: machine.prove(cfg), 5)
+        log(f"{what} prove wall-clock: best {min(proves):.3f} ms, median "
+            f"of {len(proves)} {sorted(proves)[len(proves) // 2]:.3f} ms, "
+            f"all " + " ".join(f"{t:.3f}" for t in proves))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        machine.prove(cfg)
+        torch.cuda.synchronize()
+        log(f"{what} prove device memory: peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated "
+            f"({base / 2**30:.3f} GiB held before it), "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved")
+        utils.start_stage_collection()
+        t0 = time.perf_counter()
+        machine.prove(cfg)
+        t_staged = (time.perf_counter() - t0) * 1e3
+        stages = utils.stop_stage_collection()
+        log(f"{what} prove by stage (host wall-clock, the card synchronised "
+            f"at each stage's end; {t_staged:.3f} ms in all): "
+            + ", ".join(f"{k} {v['s'] * 1e3:.3f} ms"
+                        for k, v in stages.items())
+            + f"; outside the stages "
+              f"{t_staged - sum(v['s'] for v in stages.values()) * 1e3:.3f}"
+              f" ms")
+        profile_run(f"{what} prove", lambda: machine.prove(cfg))
+        verifies = wall_ms(lambda: machine.verify(cfg, state["proof"]), 3)
+        log(f"{what} verify wall-clock (host): best {min(verifies):.3f} ms, "
+            f"all " + " ".join(f"{t:.3f}" for t in verifies)
+            + verify_before)
+
+    time_machine("machine (f)", machine_state,
+                 " (PR 5, before the host Keccak was numpy: 4144.306, "
+                 "4254.986, 4436.389 ms)")
+    time_machine("basic (h) ALU loop 2^20 cycles", basic_state, "")
 
     # 6. results
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,7 @@ offending chip/rows.
 Counterpart of valida_tpu/air/bus_debug.py.  The LogUp argument is sound
 iff, per bus, the send multiset equals the receive multiset; this tool
 pinpoints divergence far more precisely than a nonzero cumulative sum.  It
-reads the chips' host traces (numpy) and runs on the host.
+reads the chips' traces built on the CPU and runs on the host.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from collections import Counter
 
 import numpy as np
 
+from ..chips.chip import trace_on
+from ..convert import to_numpy
 from ..field import babybear as bb
 from .types import SEND
 
@@ -32,7 +34,7 @@ def collect_bus_traffic(machine):
     traffic = {}
     provenance = {}
     for chip in machine.chips():
-        main = np.asarray(chip.generate_trace(machine))
+        main = to_numpy(trace_on(chip, machine, "cpu"))
         prep = chip.preprocessed_trace()
         n = main.shape[0]
         if prep is not None:

@@ -21,27 +21,34 @@ import numpy as np
 import torch
 
 from ..convert import from_reference, to_numpy
-from .keccak import keccak256_words, keccak256_words_host
+from .keccak import (keccak256_words, keccak256_words_host,
+                     keccak256_words_numpy)
 
 DIGEST_WORDS = 8
 
 
 class Hasher:
     """Digest hasher of the MMCS: `hash_words` on int32 [n, w] tensors (the
-    kernel on a CUDA tensor, the plain version on a CPU tensor) and
-    `hash_words_host` on one message."""
+    kernel on a CUDA tensor, the plain version on a CPU tensor),
+    `hash_words_host` on one message, and `hash_numpy` on u32 [n, w]
+    numpy arrays (the verifier's batched path checks): a host version of
+    its own where given, else the plain version on CPU tensors."""
 
-    def __init__(self, name, hash_words, hash_words_host):
+    def __init__(self, name, hash_words, hash_words_host, hash_numpy=None):
         self.name = name
         self.hash_words = hash_words
         self.hash_words_host = hash_words_host
+        self._hash_numpy = hash_numpy
 
     def hash_numpy(self, words: np.ndarray) -> np.ndarray:
-        """u32 [n, w] on the host -> u32 [n, 8], through the plain version."""
+        """u32 [n, w] on the host -> u32 [n, 8]."""
+        if self._hash_numpy is not None:
+            return self._hash_numpy(words)
         return to_numpy(self.hash_words(from_reference(words)))
 
 
-KECCAK = Hasher("keccak", keccak256_words, keccak256_words_host)
+KECCAK = Hasher("keccak", keccak256_words, keccak256_words_host,
+                keccak256_words_numpy)
 
 
 def _poseidon2_hasher():

@@ -187,3 +187,104 @@ def random_ragged_machine(n_pairs: int, seed: int = 0) -> RaggedMachine:
     pairs = rng.integers(0, MAX, size=(n_pairs, 2))
     pairs2 = rng.integers(0, MAX, size=(max(n_pairs // 8, 1), 2))
     return RaggedMachine(pairs, pairs2, int(rng.integers(0, MAX)))
+
+
+# ---------------------------------------------------------------------------
+# BasicMachine programs
+# ---------------------------------------------------------------------------
+
+
+def instruction(opcode, a=0, b=0, c=0, d=0, e=0):
+    from ..core.program import InstructionWord, Operands
+
+    return InstructionWord(opcode, Operands((a, b, c, d, e)))
+
+
+def fib_program() -> list:
+    """Hand-assembled fib(25), the Rust reference's
+    `basic/tests/test_prover.rs:35-188` (the JAX package's
+    tests/test_basic_machine.py): 192 cycles, fib(25) = 75025 at fp + 4."""
+    from ..core import opcodes as OC
+
+    B = OC.BYTES_PER_INSTR
+    fib_bb0, fib_bb0_1, fib_bb0_2 = 8 * B, 13 * B, 15 * B
+    fib_bb0_3, fib_bb0_4 = 19 * B, 21 * B
+    return [
+        # main
+        instruction(OC.IMM32, -4, 0, 0, 0, 0),
+        instruction(OC.IMM32, -8, 0, 0, 0, 25),
+        instruction(OC.ADD32, -16, -8, 0, 0, 1),
+        instruction(OC.IMM32, -20, 0, 0, 0, 28),
+        instruction(OC.JAL, -28, fib_bb0, -28, 0, 0),
+        instruction(OC.ADD32, -12, -24, 0, 0, 1),
+        instruction(OC.ADD32, 4, -12, 0, 0, 1),
+        instruction(OC.STOP),
+        # fib:
+        instruction(OC.ADD32, -4, 12, 0, 0, 1),
+        instruction(OC.IMM32, -8, 0, 0, 0, 0),
+        instruction(OC.IMM32, -12, 0, 0, 0, 1),
+        instruction(OC.IMM32, -16, 0, 0, 0, 0),
+        instruction(OC.BEQ, fib_bb0_1, 0, 0, 0, 0),
+        # .LBB0_1:
+        instruction(OC.BNE, fib_bb0_2, -16, -4, 0, 0),
+        instruction(OC.BEQ, fib_bb0_4, 0, 0, 0, 0),
+        # .LBB0_2:
+        instruction(OC.ADD32, -20, -8, -12, 0, 0),
+        instruction(OC.ADD32, -8, -12, 0, 0, 1),
+        instruction(OC.ADD32, -12, -20, 0, 0, 1),
+        instruction(OC.BEQ, fib_bb0_3, 0, 0, 0, 0),
+        # .LBB0_3:
+        instruction(OC.ADD32, -16, -16, 1, 0, 1),
+        instruction(OC.BEQ, fib_bb0_1, 0, 0, 0, 0),
+        # .LBB0_4:
+        instruction(OC.ADD32, 4, -8, 0, 0, 1),
+        instruction(OC.JALV, -4, 0, 8, 0, 0),
+    ]
+
+
+def alu_loop_program(n_iters: int) -> list:
+    """A loop over the whole u32 ALU (add, mul, xor, and, or, sub, div,
+    shl, shr, lt, eq, sle, then bne): 13 cycles an iteration, the JAX
+    package's benchmarks/big_trace.py workload ("alu_u32 full ISA trace";
+    `n_iters = 2**log_cycles // 14` fills 2^log_cycles rows)."""
+    from ..core import opcodes as OC
+
+    loop_start = 3 * OC.BYTES_PER_INSTR
+    return [
+        instruction(OC.IMM32, -4, 0, 0, 0, 0),      # counter
+        instruction(OC.IMM32, -8, 0, 0, 0, 3),
+        instruction(OC.IMM32, -12, 0, 1, 0, 1),     # 65537
+        # loop:
+        instruction(OC.ADD32, -4, -4, 1, 0, 1),
+        instruction(OC.MUL32, -16, -4, -12, 0, 0),
+        instruction(OC.XOR32, -20, -16, -4, 0, 0),
+        instruction(OC.AND32, -24, -16, -12, 0, 0),
+        instruction(OC.OR32, -28, -20, -24, 0, 0),
+        instruction(OC.SUB32, -32, -16, -4, 0, 0),
+        instruction(OC.DIV32, -36, -16, -8, 0, 0),
+        instruction(OC.SHL32, -40, -4, 3, 0, 1),
+        instruction(OC.SHR32, -44, -16, 2, 0, 1),
+        instruction(OC.LT32, -48, -4, n_iters, 0, 1),
+        instruction(OC.EQ32, -52, -4, -8, 0, 0),
+        instruction(OC.SLE32, -56, -32, -16, 0, 0),
+        instruction(OC.BNE, loop_start, -48, 0, 0, 1),
+        instruction(OC.STOP),
+    ]
+
+
+def run_program(program, fp: int, static_data=None):
+    """A BasicMachine that has run `program` (a list of InstructionWords)
+    from pc 0 with frame pointer `fp`, static data {address: word} loaded
+    and an empty advice tape: ready to prove."""
+    from ..core.advice import FixedAdviceProvider
+    from ..core.program import ProgramROM
+    from .basic import BasicMachine
+
+    m = BasicMachine()
+    m.program().set_program_rom(ProgramROM(list(program)))
+    for addr, value in (static_data or {}).items():
+        m.static_data().write(addr, value)
+    m.cpu().fp = fp
+    m.cpu().registers.append((m.cpu().pc, m.cpu().fp))
+    m.run(advice=FixedAdviceProvider.empty())
+    return m

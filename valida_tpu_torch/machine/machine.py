@@ -14,6 +14,25 @@ class Machine:
     def chips(self) -> list:
         raise NotImplementedError
 
+    # bus accessors; concrete machines override (the Rust
+    # basic/src/lib.rs:1191-1211)
+    def general_bus(self):
+        raise NotImplementedError
+
+    def program_bus(self):
+        raise NotImplementedError
+
+    def mem_bus(self):
+        raise NotImplementedError
+
+    def range_bus(self):
+        raise NotImplementedError
+
+    def byte_bus(self):
+        """Byte-op delegation bus (chips/byte.py); None if the machine has
+        no byte chip."""
+        return None
+
     def prove(self, config):
         return _prove(self, config)
 

@@ -8,8 +8,9 @@ Rust prover generated by the `derive` crate:
 
 As in the JAX package, preprocessed traces are included in the openings,
 so chips may reference preprocessed columns in constraints and
-interactions.  Main traces are generated on the host, uploaded once, and
-stay on the PCS's device through the permutation traces, the quotient and
+interactions.  Main traces are built on the PCS's device (from uploaded op
+arrays, or uploaded once where a chip makes its trace on the host) and
+stay there through the permutation traces, the quotient and
 the commits; the Fiat–Shamir transcript runs on the host.
 """
 
@@ -28,7 +29,7 @@ from ..air.quotient import (
     get_log_quotient_degree,
     quotient_values,
 )
-from ..convert import from_reference
+from ..chips.chip import trace_on
 from ..core.proof import ChipProof, Commitments, MachineProof, OpenedValues
 from ..field import babybear as bb
 from ..field import ext as extf
@@ -58,13 +59,11 @@ def prove(machine, config) -> MachineProof:
         prep_commit, prep_data = np.zeros(8, dtype=np.uint32), None
     challenger.observe_digest(prep_commit)
 
-    # -- main traces: made on the host, uploaded once -----------------------
+    # -- main traces: a chip with a builder uploads its op arrays and builds
+    # its trace on the device; the others make theirs on the host and
+    # upload it once
     with stage("generate main traces"):
-        main_traces = [
-            from_reference(np.asarray(c.generate_trace(machine),
-                                      dtype=np.uint32), dev)
-            for c in chips
-        ]
+        main_traces = [trace_on(c, machine, dev) for c in chips]
     log_degrees = [int(t.shape[0]).bit_length() - 1 for t in main_traces]
     g_subgroups = [bb.two_adic_generator(ld) for ld in log_degrees]
     for ci, p in enumerate(prep_traces):
