@@ -6,7 +6,8 @@ one CUDA GPU and hold every kernel against its plain PyTorch version.
 
 Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
 1. prints the card's name and power limit;
-2. builds every kernel (one nvcc per source, in parallel) and times it;
+2. builds every kernel (one nvcc per source, in parallel) and the native
+   interpreter core (g++), and times them;
 3. compares each kernel with its plain version on the card, word for word:
    ntt_dif_whole (one, two and three passes, even and uneven splits,
    constant arrays of 0 and p - 1), ntt_dif_ragged (the same, at ragged
@@ -41,20 +42,31 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
        main-trace roots held to the JAX package's, and a changed opened
        trace value and a changed cumulative sum each rejected with the
        error class the JAX package's verifier raises;
-   then three BasicMachine (Valida VM) programs, interpreted on the host
-   and proved on the card under `default_config()`, with the same
-   counters and recorded calls:
-   (n) fib(25), with its interpreter profile (clock 192, 401 memory
-       operations, 105 adds, fib(25) at fp + 4), its proof's bytes held to
-       the SHA-256 of the JAX package's;
-   (h') the ALU loop at 2^13 cycles, likewise;
-   (h) the ALU loop at 2^20 cycles (the "alu_u32 full ISA trace"): its
-       preprocessed and main-trace roots held to the JAX package's, the
-       port's verifier, and the two tampers of (f);
+   then BasicMachine (Valida VM) programs, interpreted on the host by the
+   Python step loop (`run`) or the C++ core (`run_native`, its op logs as
+   lists or as arrays) and proved on the card under `default_config()`,
+   with the same counters and recorded calls:
+   (n) fib(25) by `run`, with its interpreter profile (clock 192, 401
+       memory operations, 105 adds, fib(25) at fp + 4), its proof's bytes
+       held to the SHA-256 of the JAX package's;
+   (h') the ALU loop at 2^13 cycles, likewise, once by each interpreter;
+   (h) the ALU loop at 2^20 cycles (the "alu_u32 full ISA trace") by
+       `run`: its preprocessed and main-trace roots held to the JAX
+       package's, the port's verifier, and the two tampers of (f);
+   (k) the same by `run_native(build_lists=False)`: its op arrays held to
+       (h)'s logs converted, then as (h);
+   then two machine compositions by the C++ core in array mode, each proof
+   held to the SHA-256 of the JAX package's: (x) `ExtendedMachine` (the
+   native field chip) and (l) `LoadStoreMachine` (no ALU chips);
+   then (cli): `python -m valida_tpu_torch.tooling.cli` asm, run, prove and
+   verify of tests/programs/fibonacci.val, each in a process of its own:
+   the output tape, the proof file's SHA-256, verify's exit 0 and a
+   flipped byte's exit 1 (prove's launch counters read in its process);
 5. times each kernel at the main path's shapes with CUDA events, beside its
    bound and its plain version, and times commits (b) and (c), the NTT,
-   (d)'s commit and opening, and (f)'s and (h)'s prove (median of 5, by
-   stage, memory peak) and verify, each with a profile;
+   (d)'s commit and opening, (f)'s and (k)'s prove (median of 5, by stage,
+   memory peak) and verify, each with a profile, and (h)'s prove by stage
+   beside (k)'s;
 6. prints one JSON line of kernels, then the device line last.
 Any mismatch, build failure or launch error raises: the exit code is then
 non-zero and the last line is not printed.  With no GPU it exits 1.
@@ -216,17 +228,23 @@ F_ROOTS = [
 
 # the BasicMachine programs of the main path: the program (fib(25), the
 # Rust reference's basic/tests/test_prover.rs program, or the ALU loop of
-# 2^k cycles, alu_loop_program(2^k // 14) as benchmarks/big_trace.py) and
-# the kernels each must and must not launch
+# 2^k cycles, alu_loop_program(2^k // 14) as benchmarks/big_trace.py), the
+# interpreter ("run": the Python step loop; "lists" and "arrays": the C++
+# core, run_native(build_lists=True / False)) and the kernels each must and
+# must not launch.  A path's pin is that of the first word of its name.
+BASIC_KERNELS = (("keccak256", "ntt_dif_ragged"), ("poseidon2",))
 BASIC_PATHS = {
-    "n": ("fib", ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
-    "h'": (13, ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
-    "h": (20, ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
+    "n": ("fib", "run"),
+    "h'": (13, "run"),
+    "h' lists": (13, "lists"),
+    "h' arrays": (13, "arrays"),
+    "h": (20, "run"),
+    "k": (20, "arrays"),
 }
 # SHA-256 of the serialized proofs of (n) and (h') under default_config()
 # as the JAX package's numpy path makes them (tests/test_torch_basic.py::
-# reference_basic_digest("fib" / "alu_loop_13", "default")), and (h)'s
-# preprocessed and main-trace roots (::reference_basic_roots(20))
+# reference_basic_digest("fib" / "alu_loop_13", "default")), and (h)'s and
+# (k)'s preprocessed and main-trace roots (::reference_basic_roots(20))
 BASIC_GOLDEN = {
     "n": "5d802fc413fa21a9b8787c60064927ceafeeca2151cfc1111fe2f5d341a6247d",
     "h'": "7171efd7a498a0a624e853f4058481fbb3c29a6a982b49f5241f3e8df55f87b7",
@@ -235,6 +253,52 @@ H_ROOTS = [
     "dfc416a5150a9c2007d4b56131dbb0e8bbefea1237284931fcd604f382132751",
     "3d2555748ffa293ffaff1a4a4dce23ed2015c28c0ecf27c9444e5d49bbf311a6",
 ]
+
+# the machine compositions (tests/test_compositions.py's programs), run by
+# the C++ core in array mode and proved under default_config(): (machine
+# class in valida_tpu_torch.machine.compositions, assembly)
+COMPOSITION_PATHS = {
+    "x": ("ExtendedMachine", """\
+main:
+    imm32 -4(fp), 0, 15, 66, 64
+    feadd -12(fp), -4(fp), -4(fp)
+    femul -16(fp), -12(fp), -4(fp)
+    fesub -20(fp), -4(fp), -12(fp)
+    write 0, -16, 0, 0, 1
+    stop
+"""),
+    "l": ("LoadStoreMachine", """\
+main:
+    imm32 -4(fp), 0, 0, 0, 77
+    imm32 -8(fp), 0, 0, 1, 0
+    sw -8(fp), -4(fp)
+    imm32 -16(fp), 0, 0, 1, 0
+    loadu8 -12(fp), -16(fp)
+    beq skip, -4(fp), -12(fp)
+    imm32 -4(fp), 0, 0, 0, 0
+skip:
+    write 0, -4, 0, 0, 1
+    stop
+"""),
+}
+# SHA-256 of their serialized proofs as the JAX package's numpy path makes
+# them (tests/test_torch_compositions.py::reference_composition_digest)
+COMPOSITION_GOLDEN = {
+    "x": "f51b54c986562c532662878612ff5a9f9116bd94c428cab096d6d244351f9eee",
+    "l": "61a0e50221a25749a3fd2ea8f8b0d0be746644f3cdbaaf406192dc6687e4f9fe",
+}
+# path (cli): `python -m valida_tpu_torch.tooling.cli` on
+# tests/programs/fibonacci.val with advice byte 25, and the SHA-256 of the
+# proof file `prove` writes, as the JAX package's numpy path makes it
+# (tests/test_torch_tooling.py::reference_cli_digest)
+CLI_PROGRAM, CLI_ADVICE = "tests/programs/fibonacci.val", bytes([25])
+CLI_GOLDEN = "8c35dd4e62ee2e7b9fccce7d6c4b46fac39a63b37ca477e20b6a1926754ca169"
+# runs the CLI's main with its arguments and then prints the process's
+# kernel launch counts
+CLI_COUNTING = ("import json, sys; from valida_tpu_torch import _build; "
+                "from valida_tpu_torch.tooling.cli import main; "
+                "rc = main(sys.argv[1:]); "
+                "print('launches', json.dumps(_build.LAUNCHES)); sys.exit(rc)")
 
 
 def _tamper_opened_trace_value(proof):
@@ -372,6 +436,68 @@ def trace(log_n, cols):
     return t
 
 
+def run_cli(log) -> dict:
+    """Path (cli): `python -m valida_tpu_torch.tooling.cli` asm, run,
+    prove and verify of CLI_PROGRAM with CLI_ADVICE, each action in a
+    process of its own on the card.  Checks the output tape, the proof
+    file's SHA-256 against CLI_GOLDEN, verify's exit 0 and a flipped byte's
+    exit 1.  Returns the prove process's kernel launch counts."""
+    import tempfile
+
+    cli = [sys.executable, "-m", "valida_tpu_torch.tooling.cli"]
+
+    def call(args, expect, command=cli):
+        t0 = time.perf_counter()
+        proc = subprocess.run(command + args, cwd=ROOT, capture_output=True,
+                              text=True)
+        if proc.returncode != expect:
+            raise RuntimeError(f"cli {args[0]}: exit {proc.returncode}, "
+                               f"expected {expect}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        log(f"cli {' '.join(os.path.basename(a) for a in args)}: exit "
+            f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
+        return proc.stdout
+
+    with tempfile.TemporaryDirectory() as d:
+        prog, tape, advice, proof, bad = (
+            os.path.join(d, f) for f in ("prog.bin", "out.tape",
+                                         "advice.bin", "proof.cbor",
+                                         "bad.cbor"))
+        with open(advice, "wb") as f:
+            f.write(CLI_ADVICE)
+        call(["asm", CLI_PROGRAM, prog], 0)
+        call(["run", prog, tape, advice], 0)
+        with open(tape, "rb") as f:
+            result = int.from_bytes(f.read(), "little")
+        if result != 75025:
+            raise RuntimeError(f"cli run: output tape {result}, expected "
+                               f"fib(25) = 75025")
+        out = call(["prove", prog, proof, advice], 0,
+                   [sys.executable, "-c", CLI_COUNTING])
+        counts = json.loads(next(line for line in out.splitlines()
+                                 if line.startswith("launches "))[9:])
+        log(f"cli prove launches: {counts}")
+        missing = [k for k in BASIC_KERNELS[0] if counts[k] == 0]
+        extra = [k for k in BASIC_KERNELS[1] if counts[k] != 0]
+        if missing or extra:
+            raise RuntimeError(f"cli prove launched none of {missing} or "
+                               f"{extra}, which it must not")
+        with open(proof, "rb") as f:
+            blob = f.read()
+        digest = hashlib.sha256(blob).hexdigest()
+        if digest != CLI_GOLDEN:
+            raise RuntimeError(f"cli prove: the proof file's sha256 is "
+                               f"{digest}, the JAX package's {CLI_GOLDEN}")
+        log(f"cli prove: {len(blob)} bytes, sha256 == JAX package's")
+        call(["verify", prog, proof], 0)
+        flipped = bytearray(blob)
+        flipped[-20] ^= 1  # a late byte: an opened value
+        with open(bad, "wb") as f:
+            f.write(flipped)
+        call(["verify", prog, bad], 1)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -388,8 +514,14 @@ def main() -> int:
     from valida_tpu_torch.crypto import poseidon2 as p2
     from valida_tpu_torch.core.config import default_config
     from valida_tpu_torch.crypto.challenger import DuplexChallenger
-    from valida_tpu_torch.machine import examples
+    from valida_tpu_torch.chips.alu import _ops_to_arrays
+    from valida_tpu_torch.core.program import ProgramROM
+    from valida_tpu_torch.machine import compositions, examples
+    from valida_tpu_torch.machine.basic import BasicMachine
     from valida_tpu_torch.machine.verifier import VerificationError
+    from valida_tpu_torch.native import ALU_LOGS
+    from valida_tpu_torch.native import build as native_build
+    from valida_tpu_torch.tooling.assembler import assemble
     from valida_tpu_torch.poly import ntt, radix_ntt
     from valida_tpu_torch.tooling.serde import (deserialize_proof,
                                                 serialize_proof)
@@ -446,6 +578,9 @@ def main() -> int:
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line:
                 log(f"  {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    log(f"build: the native interpreter core {native_build.build().name} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 3. every kernel against its plain version, on the card
     max_err = dict.fromkeys(SOURCES, 0)
@@ -751,15 +886,55 @@ def main() -> int:
             machine_state = dict(machine=machine, cfg=cfg, proof=proof)
 
     # the BasicMachine: (n) fib(25) and (h') the ALU loop at 2^13 cycles,
-    # whole proofs pinned; (h) the ALU loop at 2^20 cycles, roots pinned.
-    # The interpreter runs on the host; the prover builds the op-log
-    # chips' traces on the card from their uploaded op arrays.
-    basic_state = {}
-    for path, (prog, needed, forbidden) in BASIC_PATHS.items():
-        t0 = time.perf_counter()
+    # whole proofs pinned, (h') by each of the three interpreters; (h) and
+    # (k) the ALU loop at 2^20 cycles by the Python step loop and by the
+    # C++ core in array mode, roots pinned, (k)'s op arrays held to (h)'s
+    # logs.  The prover builds the op-log chips' traces on the card from
+    # their uploaded op arrays.
+    def basic_machine(prog, interpreter):
         if prog == "fib":
-            machine = examples.run_program(examples.fib_program(), 0x1000)
-            what = "basic (n) fib(25)"
+            program, fp = examples.fib_program(), 0x1000
+        else:
+            program = examples.alu_loop_program((1 << prog) // 14)
+            fp = 0x1000000
+        if interpreter == "run":
+            return examples.run_program(program, fp)
+        m = BasicMachine()
+        m.program().set_program_rom(ProgramROM(program))
+        m.cpu().fp = fp
+        m.run_native(build_lists=interpreter == "lists")
+        return m
+
+    def first_op_array_difference(machine, ref):
+        """(chip, field) of the first op array of `machine` that differs
+        from `ref`'s, or None."""
+        for chip in ("cpu", "mem"):
+            got = getattr(machine, chip)().op_arrays()
+            want = getattr(ref, chip)().op_arrays()
+            for i, (g, w) in enumerate(zip(got, want, strict=True)):
+                if g.dtype != w.dtype or not np.array_equal(g, w):
+                    return chip, i
+        for accessor, kinds in ALU_LOGS.values():
+            if accessor == "native_field":
+                continue
+            got = getattr(machine, accessor)().operations
+            want = _ops_to_arrays(getattr(ref, accessor)().operations, kinds)
+            for i, (g, w) in enumerate(zip(got, want, strict=True)):
+                if not np.array_equal(g, w):
+                    return accessor, i
+        return None
+
+    basic_state = {}
+    for path, (prog, interpreter) in BASIC_PATHS.items():
+        t0 = time.perf_counter()
+        machine = basic_machine(prog, interpreter)
+        t_interp = time.perf_counter() - t0
+        what = (f"basic ({path}) " + ("fib(25)" if prog == "fib" else
+                                      f"ALU loop 2^{prog} cycles")
+                + f" by {interpreter}")
+        log(f"{what}: interpreted {machine.cpu().clock} cycles on the host "
+            f"in {t_interp:.3f} s")
+        if prog == "fib":
             profile = (machine.cpu().clock,
                        sum(len(v) for v in machine.mem().operations.values()),
                        len(machine.add_u32().operations),
@@ -768,16 +943,18 @@ def main() -> int:
                 raise RuntimeError(f"{what}: interpreter profile (clock, "
                                    f"memory ops, adds, fp+4) {profile}, "
                                    f"expected (192, 401, 105, 75025)")
-        else:
-            machine = examples.run_program(
-                examples.alu_loop_program((1 << prog) // 14), 0x1000000)
-            what = f"basic ({path}) ALU loop 2^{prog} cycles"
-        log(f"{what}: interpreted {machine.cpu().clock} cycles on the host "
-            f"in {time.perf_counter() - t0:.2f} s")
+        if path == "k":
+            t0 = time.perf_counter()
+            differs = first_op_array_difference(machine, basic_state["h"]["machine"])
+            if differs is not None:
+                raise RuntimeError(f"{what}: op arrays {differs} differ from "
+                                   f"(h)'s logs converted")
+            log(f"{what}: every op array (cpu, mem, 8 ALU chips) == (h)'s "
+                f"logs converted ({time.perf_counter() - t0:.1f} s)")
         cfg = default_config()
         t0 = time.perf_counter()
         proof, launches[path] = run_recorded(
-            what, needed, forbidden, lambda: machine.prove(cfg), sample=True)
+            what, *BASIC_KERNELS, lambda: machine.prove(cfg), sample=True)
         t_prove = time.perf_counter() - t0
         blob = serialize_proof(proof)
         digest = hashlib.sha256(blob).hexdigest()
@@ -790,10 +967,11 @@ def main() -> int:
             f"{t_prove:.1f} s, verified on the host in {t_verify:.2f} s, "
             f"{len(blob)} bytes, sha256 {digest}; ntt_dif_whole launched "
             f"{launches[path]['ntt_dif_whole']} times")
-        if path in BASIC_GOLDEN:
-            if digest != BASIC_GOLDEN[path]:
+        pin = path.split()[0]
+        if pin in BASIC_GOLDEN:
+            if digest != BASIC_GOLDEN[pin]:
                 raise RuntimeError(f"{what}: sha256 is {digest}, the JAX "
-                                   f"package's is {BASIC_GOLDEN[path]}")
+                                   f"package's is {BASIC_GOLDEN[pin]}")
             log(f"{what}: sha256 == JAX package's")
         else:
             roots = [words_hex(proof.commitments.preprocessed),
@@ -804,7 +982,31 @@ def main() -> int:
             log(f"{what}: preprocessed and main-trace roots == JAX "
                 f"package's")
             check_tampers(what, machine, cfg, proof)
-            basic_state = dict(machine=machine, cfg=cfg, proof=proof)
+            basic_state[path] = dict(machine=machine, cfg=cfg, proof=proof,
+                                     interpret_s=t_interp)
+
+    # the compositions, interpreted by the C++ core in array mode
+    for path, (cls, asm) in COMPOSITION_PATHS.items():
+        machine = getattr(compositions, cls)()
+        machine.program().set_program_rom(
+            ProgramROM.from_machine_code(assemble(asm)))
+        machine.cpu().fp = 0x1000
+        machine.run_native(build_lists=False)
+        what = f"composition ({path}) {cls}"
+        cfg = default_config()
+        proof, launches[path] = run_recorded(
+            what, *BASIC_KERNELS, lambda: machine.prove(cfg), sample=True)
+        machine.verify(cfg, proof)
+        digest = hashlib.sha256(serialize_proof(proof)).hexdigest()
+        if digest != COMPOSITION_GOLDEN[path]:
+            raise RuntimeError(f"{what}: sha256 is {digest}, the JAX "
+                               f"package's is {COMPOSITION_GOLDEN[path]}")
+        log(f"{what}: {len(machine.chips())} chips, "
+            f"{machine.cpu().clock} cycles, verified on the host; sha256 "
+            f"== JAX package's")
+
+    # (cli): the port's CLI, each action in a process of its own
+    launches["cli"] = run_cli(log)
 
     # 5. timings at the main path's shapes
     kernels = []
@@ -1004,6 +1206,21 @@ def main() -> int:
     # clock spreads: the median of 5 proofs beside the best; then one proof
     # with the device's memory peak, one with the stage collection (each
     # stage waits for the card at its end) and one under the profiler
+    def staged_prove(what, machine, cfg):
+        """One prove with the stage collection on: host ms by stage."""
+        utils.start_stage_collection()
+        t0 = time.perf_counter()
+        machine.prove(cfg)
+        t_staged = (time.perf_counter() - t0) * 1e3
+        stages = utils.stop_stage_collection()
+        log(f"{what} prove by stage (host wall-clock, the card synchronised "
+            f"at each stage's end; {t_staged:.3f} ms in all): "
+            + ", ".join(f"{k} {v['s'] * 1e3:.3f} ms"
+                        for k, v in stages.items())
+            + f"; outside the stages "
+              f"{t_staged - sum(v['s'] for v in stages.values()) * 1e3:.3f}"
+              f" ms")
+
     def time_machine(what, state, verify_before):
         machine, cfg = state["machine"], state["cfg"]
         proves = wall_ms(lambda: machine.prove(cfg), 5)
@@ -1019,18 +1236,7 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated "
             f"({base / 2**30:.3f} GiB held before it), "
             f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved")
-        utils.start_stage_collection()
-        t0 = time.perf_counter()
-        machine.prove(cfg)
-        t_staged = (time.perf_counter() - t0) * 1e3
-        stages = utils.stop_stage_collection()
-        log(f"{what} prove by stage (host wall-clock, the card synchronised "
-            f"at each stage's end; {t_staged:.3f} ms in all): "
-            + ", ".join(f"{k} {v['s'] * 1e3:.3f} ms"
-                        for k, v in stages.items())
-            + f"; outside the stages "
-              f"{t_staged - sum(v['s'] for v in stages.values()) * 1e3:.3f}"
-              f" ms")
+        staged_prove(what, machine, cfg)
         profile_run(f"{what} prove", lambda: machine.prove(cfg))
         verifies = wall_ms(lambda: machine.verify(cfg, state["proof"]), 3)
         log(f"{what} verify wall-clock (host): best {min(verifies):.3f} ms, "
@@ -1040,7 +1246,17 @@ def main() -> int:
     time_machine("machine (f)", machine_state,
                  " (PR 5, before the host Keccak was numpy: 4144.306, "
                  "4254.986, 4436.389 ms)")
-    time_machine("basic (h) ALU loop 2^20 cycles", basic_state, "")
+    # the ALU loop at 2^20 cycles: (h), the Python step loop's lists, one
+    # staged prove as the baseline; then (k), the C++ core's arrays, timed
+    # in full
+    h, k = basic_state.pop("h"), basic_state["k"]
+    log(f"basic ALU loop 2^20 cycles interpretation on the host: (h) run "
+        f"{h['interpret_s']:.3f} s, (k) run_native(build_lists=False) "
+        f"{k['interpret_s']:.3f} s")
+    staged_prove("basic (h) ALU loop 2^20 cycles by run", h["machine"],
+                 h["cfg"])
+    del h
+    time_machine("basic (k) ALU loop 2^20 cycles by arrays", k, "")
 
     # 6. results
     print(json.dumps({"kernels": kernels}), flush=True)

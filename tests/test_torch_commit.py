@@ -116,7 +116,15 @@ def test_port_imports_neither_jax_nor_reference():
             "valida_tpu_torch/crypto/poseidon.py",
             "valida_tpu_torch/crypto/challenger.py",
             "valida_tpu_torch/commit/fri.py",
-            "valida_tpu_torch/commit/pcs.py"} <= names
+            "valida_tpu_torch/commit/pcs.py",
+            "valida_tpu_torch/native/__init__.py",
+            "valida_tpu_torch/native/build.py",
+            "valida_tpu_torch/chips/native_field.py",
+            "valida_tpu_torch/machine/compositions.py",
+            "valida_tpu_torch/tooling/assembler.py",
+            "valida_tpu_torch/tooling/elf.py",
+            "valida_tpu_torch/tooling/repl.py",
+            "valida_tpu_torch/tooling/cli.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

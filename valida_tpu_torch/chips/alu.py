@@ -89,7 +89,11 @@ def _finish(m, ops, opcode, a, imm, left_imm=False, range_check=True):
 
 def _ops_to_arrays(operations, kinds=None):
     """List of (kind?, a, b, c) tuples -> (kind, a, b, c) u32 arrays of
-    length n; kind is the index in `kinds` (0 for a chip of one kind)."""
+    length n; kind is the index in `kinds` (0 for a chip of one kind).  A
+    4-tuple of such arrays (the native core's, run_native(build_lists=
+    False)) passes through."""
+    if isinstance(operations, tuple):
+        return operations
     n = len(operations)
     if kinds is not None:
         kind_map = {k: i for i, k in enumerate(kinds)}

@@ -39,6 +39,7 @@ from ..core import opcodes as OC
 from ..field import babybear as bb
 from .chip import (Chip, IndexAllocator, assemble_columns, be_byte, grow,
                    mod_p, next_pow2, wide)
+from .memory import ranks_in_clk
 
 _a = IndexAllocator()
 IS_U8 = _a.scalar()
@@ -103,50 +104,53 @@ class ByteChip(Chip):
 
     # -- trace ---------------------------------------------------------------
 
-    @staticmethod
-    def _byte_ops(machine):
-        """(kind, clk, fp, operands[5], memory ops at clk) per byte op,
-        kind in {u8, s8, st}, derived from the CPU and memory logs (no
-        separate byte log)."""
-        cpu = machine.cpu()
-        mem = machine.mem()
-        kmap = {"load_u8": "u8", "load_s8": "s8", "store_u8": "st"}
-        return [(kmap[k], clk, cpu.registers[clk][1],
-                 cpu.instructions[clk].operands.ops,
-                 [(kd == "w", a, v) for kd, a, v in
-                  mem.operations.get(clk, [])])
-                for clk, (k, _imm) in enumerate(cpu.operations) if k in kmap]
-
     def device_trace_inputs(self, machine):
-        """Parse the structured byte-op log into compact u32 arrays (the
-        per-op python walk stays on the host; everything vectorizable is in
-        build_trace)."""
-        ops = self._byte_ops(machine)
-        n = len(ops)
+        """The byte ops' compact u32 arrays, read from the CPU's and the
+        memory's op arrays (there is no separate byte log): per op its kind
+        (0 u8, 1 s8, 2 st), clk, pointers, aligned addresses and words.
+
+        At a byte op's clk the memory log holds, in order, a LOADU8/LOADS8's
+        reads of the pointer cell and of the aligned source word and its
+        write of the destination word; a STOREU8's reads of the pointer
+        cell, the aligned source word and the old destination word, and its
+        write of the merged word."""
+        kinds, _hi, _imm, _opc, operands, _pc, pre_fp = \
+            machine.cpu().op_arrays()
+        mclk, mwrite, maddr, mvalue = machine.mem().op_arrays()
+        is_byte = np.isin(kinds, (1, 2, 4))
+        clk = np.flatnonzero(is_byte)
+        n = len(clk)
         n2 = next_pow2(n)
-        arr = np.zeros((9, n), dtype=np.uint32)
-        kindc, clk_a, srcp, srca, srcw, dstp, dsta, oldw, outw = arr
-        for i, (kind, clk, fp, opnds, mem_ops) in enumerate(ops):
-            reads = [(a, v) for w, a, v in mem_ops if not w]
-            writes = [(a, v) for w, a, v in mem_ops if w]
-            clk_a[i] = clk % bb.P
-            if kind == "st":
-                kindc[i] = 2
-                src_ptr = (fp + opnds[2]) & 0xFFFFFFFF
-                dst_ptr = reads[0][1]
-                src_al, src_w = reads[1]
-                dst_al, old_w = reads[2]
-            else:
-                kindc[i] = 0 if kind == "u8" else 1
-                src_ptr = reads[0][1]
-                src_al, src_w = reads[1]
-                dst_ptr = (fp + opnds[0]) & 0xFFFFFFFF
-                dst_al, old_w = writes[0][0], 0
-            for al in (src_al, dst_al):
-                assert al >> ADDR_SPACE_BITS == 0 and al % 4 == 0
-            srcp[i], srca[i], srcw[i] = src_ptr, src_al, src_w
-            dstp[i], dsta[i], oldw[i] = dst_ptr, dst_al, old_w
-            outw[i] = writes[0][1]
+        is_st = kinds[clk] == 4
+        kindc = np.where(is_st, 2, np.where(kinds[clk] == 2, 1, 0))
+        # the memory ops at byte-op clks by their rank among their clk's
+        # reads or writes: each rank holds one op of every byte op, in clk
+        # order (the third read, one of every STOREU8)
+        mwrite = mwrite.astype(bool)
+        at_byte = is_byte[mclk]
+        read_rank = ranks_in_clk(mclk, ~mwrite)
+        write_rank = ranks_in_clk(mclk, mwrite)
+
+        def ops_of(sel):
+            idx = np.flatnonzero(at_byte & sel)
+            return maddr[idx].astype(np.int64), mvalue[idx].astype(np.int64)
+
+        r0 = ops_of(~mwrite & (read_rank == 0))
+        r1 = ops_of(~mwrite & (read_rank == 1))
+        r2 = ops_of(~mwrite & (read_rank == 2))
+        w0 = ops_of(mwrite & (write_rank == 0))
+        fp = pre_fp[clk].astype(np.int64)
+        opnds = operands[clk].astype(np.int64)
+        srcp = np.where(is_st, fp + opnds[:, 2], r0[1]) & 0xFFFFFFFF
+        srca, srcw = r1
+        dstp = np.where(is_st, r0[1], fp + opnds[:, 0]) & 0xFFFFFFFF
+        dsta = w0[0].copy()
+        oldw = np.zeros(n, np.int64)
+        dsta[is_st], oldw[is_st] = r2
+        for al in (srca, dsta):
+            assert (al >> ADDR_SPACE_BITS == 0).all() and (al % 4 == 0).all()
+        arr = np.stack([kindc, clk % bb.P, srcp, srca, srcw, dstp, dsta,
+                        oldw, w0[1]]).astype(np.uint32)
         return tuple(arr), (n, n2)
 
     def build_trace(self, inputs, meta):

@@ -27,6 +27,7 @@ from ..core.word import (
 from ..field import babybear as bb
 from .chip import (Chip, IndexAllocator, assemble_columns, be_byte,
                    canon_inv, grow, mod_p, next_pow2, wide)
+from .memory import ranks_in_clk
 
 _a = IndexAllocator()
 CLK = _a.scalar()
@@ -68,6 +69,14 @@ for _ in range(3):
 CLK_OR_ZERO = _a.scalar()
 NUM_CPU_COLS = _a.width
 
+# op kind -> code of the op arrays (native/interpreter.cpp's CpuKind)
+KIND_CODE = {
+    "load": 0, "load_u8": 1, "load_s8": 2, "store": 3, "store_u8": 4,
+    "jal": 5, "jalv": 6, "beq": 7, "bne": 8, "imm32": 9, "advice": 10,
+    "stop": 11, "loadfp": 12, "bus": 13, "bus_left_imm": 14,
+    "bus_with_memory": 15,
+}
+
 
 class CpuChip(Chip):
     name = "cpu"
@@ -79,6 +88,9 @@ class CpuChip(Chip):
         self.registers: list[tuple[int, int]] = []  # (pc, fp) snapshots
         self.operations: list[tuple] = []  # (kind, imm or None)
         self.instructions: list[InstructionWord] = []
+        # the op log as arrays (run_native(build_lists=False)); the lists
+        # above are then empty: see op_arrays
+        self.ops_arrays = None
 
     # -- execution-side plumbing (cpu/src/lib.rs:883-923) -------------------
 
@@ -105,23 +117,19 @@ class CpuChip(Chip):
     def width(self):
         return NUM_CPU_COLS
 
-    def device_trace_inputs(self, machine):
-        """Compact op-log inputs for build_trace.  The per-clk memory
-        channel ROUTING (which op lands on which of the 3 CPU channels)
-        is resolved on the host into small index arrays, so the build is
-        gathers and scatters with static shapes."""
+    def op_arrays(self):
+        """The op log as arrays: (kind u8[n] (KIND_CODE), has_imm u8[n],
+        imm u32[n] (0 where there is none), opcode u32[n], operands
+        i32[n, 5], pre_pc u32[n], pre_fp u32[n]), the registers before each
+        op.  `ops_arrays` when the native core set it, else made from the
+        lists."""
+        if self.ops_arrays is not None:
+            return self.ops_arrays
         n = len(self.operations)
-        n2 = next_pow2(n)
-        kind_code = {
-            "load": 0, "load_u8": 1, "load_s8": 2, "store": 3, "store_u8": 4,
-            "jal": 5, "jalv": 6, "beq": 7, "bne": 8, "imm32": 9, "advice": 10,
-            "stop": 11, "loadfp": 12, "bus": 13, "bus_left_imm": 14,
-            "bus_with_memory": 15,
-        }
-        kinds = np.fromiter((kind_code[k] for k, _ in self.operations),
-                            dtype=np.uint32, count=n)
+        kinds = np.fromiter((KIND_CODE[k] for k, _ in self.operations),
+                            dtype=np.uint8, count=n)
         has_imm = np.fromiter((im is not None for _, im in self.operations),
-                              dtype=np.uint32, count=n)
+                              dtype=np.uint8, count=n)
         imm = np.fromiter(
             ((im if im is not None else 0) for _, im in self.operations),
             dtype=np.uint32, count=n)
@@ -132,51 +140,42 @@ class CpuChip(Chip):
             dtype=np.int64, count=5 * n).reshape(n, 5)
         regs = np.fromiter((x for r in self.registers[:n] for x in r),
                            dtype=np.int64, count=2 * n).reshape(n, 2)
-        pre_pc = (regs[:, 0] & 0xFFFFFFFF).astype(np.uint32)
-        pre_fp = (regs[:, 1] & 0xFFFFFFFF).astype(np.uint32)
-        operands_u = (operands & 0xFFFFFFFF).astype(np.uint32)
+        regs = (regs & 0xFFFFFFFF).astype(np.uint32)
+        return (kinds, has_imm, imm, opcode,
+                (operands & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
+                regs[:, 0].copy(), regs[:, 1].copy())
+
+    def device_trace_inputs(self, machine):
+        """Compact op-log inputs for build_trace.  The per-clk memory
+        channel ROUTING (which op lands on which of the 3 CPU channels)
+        is resolved on the host into small index arrays, so the build is
+        gathers and scatters with static shapes."""
+        kinds, has_imm, imm, opcode, operands, pre_pc, pre_fp = \
+            self.op_arrays()
+        n = len(kinds)
+        n2 = next_pow2(n)
+        kinds = kinds.astype(np.uint32)
+        has_imm = has_imm.astype(np.uint32)
+        operands_u = operands.view(np.uint32)
         left_imm = (kinds == 14) & (has_imm != 0)
 
         # -- memory channel routing (cpu/src/lib.rs:244-283) ---------------
-        mem = machine.mem()
-        ops = [(ck, op) for ck in sorted(mem.operations)
-               for op in mem.operations[ck]]
-        m = len(ops)
-        mclk = np.fromiter((ck for ck, _ in ops), dtype=np.int64, count=m)
-        mwrite = np.fromiter((op[0] == "w" for _, op in ops), dtype=bool,
-                             count=m)
-        maddr = np.fromiter((op[1] for _, op in ops), dtype=np.int64,
-                            count=m)
-        mvalue = np.fromiter((op[2] for _, op in ops), dtype=np.uint32,
-                             count=m)
-        channels = []
-        if m:
-            # rank of each read within its clk group (groups contiguous);
-            # reads: rank 0 -> channel 0 (1 for left-imm ops), rank 1 -> 1;
-            # rank-2 reads (the STOREU8 merge) belong to the byte chip's
-            # memory-bus send, not a CPU channel
-            group_start = np.searchsorted(mclk, mclk, side="left")
-            read_mask = ~mwrite
-            cum_excl = np.cumsum(read_mask) - read_mask
-            rank = cum_excl - cum_excl[group_start]
-            is_left = left_imm[mclk]
-            ch = np.where(
-                mwrite, 2,
-                np.where((rank == 0) & ~is_left, 0, np.where(rank <= 1, 1, -1))
-            )
-            for ch_id in range(3):
-                sel = ch == ch_id
-                channels.append((
-                    mclk[sel].astype(np.uint32),
-                    (maddr[sel] & 0xFFFFFFFF).astype(np.uint32),
-                    mvalue[sel],
-                ))
-        else:
-            z = np.zeros(0, dtype=np.uint32)
-            channels = [(z, z, z)] * 3
+        mclk, mwrite, maddr, mvalue = machine.mem().op_arrays()
+        mwrite = mwrite.astype(bool)
+        # rank of each read within its clk group (groups contiguous);
+        # reads: rank 0 -> channel 0 (1 for left-imm ops), rank 1 -> 1;
+        # rank-2 reads (the STOREU8 merge) belong to the byte chip's
+        # memory-bus send, not a CPU channel
+        rank = ranks_in_clk(mclk, ~mwrite)
+        is_left = left_imm[mclk]
+        ch = np.where(
+            mwrite, 2,
+            np.where((rank == 0) & ~is_left, 0, np.where(rank <= 1, 1, -1))
+        )
         inputs = (kinds, has_imm, imm, opcode, operands_u, pre_pc, pre_fp)
-        for tgt, addr, val in channels:
-            inputs += (tgt, addr, val)
+        for ch_id in range(3):
+            sel = ch == ch_id
+            inputs += (mclk[sel], maddr[sel], mvalue[sel])
         return inputs, (n, n2)
 
     def build_trace(self, inputs, meta):

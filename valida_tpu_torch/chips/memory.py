@@ -62,6 +62,16 @@ DELTA = _a.array(4)  # base-256 limbs (LE) of the sort delta; top limb < 64
 NUM_MEM_COLS = _a.width
 
 
+def ranks_in_clk(clk: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """For ops in execution order (clk nondecreasing): how many ops of
+    `mask` precede each op at its clk, i.e. the rank of a `mask` op among
+    its clk's."""
+    clk = clk.astype(np.int64)
+    group_start = np.searchsorted(clk, clk, side="left")
+    cum_excl = np.cumsum(mask) - mask
+    return cum_excl - cum_excl[group_start]
+
+
 class ReadBeforeWrite(Exception):
     pass
 
@@ -77,6 +87,9 @@ class MemoryChip(Chip):
         self.cells: dict[int, int] = {}
         self.operations: dict[int, list] = {}  # clk -> [(kind, addr, value)]
         self.static_data: dict[int, int] = {}
+        # the op log as arrays (run_native(build_lists=False)); the dict
+        # above is then empty: see op_arrays
+        self.ops_arrays = None
         self._rows_cache = None
 
     # -- execution side (memory/src/lib.rs:85-136) --------------------------
@@ -138,6 +151,24 @@ class MemoryChip(Chip):
     def width(self):
         return NUM_MEM_COLS
 
+    def op_arrays(self):
+        """The op log as arrays in execution order (clk nondecreasing, a
+        clk's ops in the order they ran): (clk u32[n], is_write u8[n],
+        addr u32[n], value u32[n]).  `ops_arrays` when the native core set
+        it, else made from the dict."""
+        if self.ops_arrays is not None:
+            return self.ops_arrays
+        clks = sorted(self.operations)
+        n = sum(len(self.operations[ck]) for ck in clks)
+        ops = [op for ck in clks for op in self.operations[ck]]
+        return (
+            np.fromiter((ck for ck in clks for _ in self.operations[ck]),
+                        np.uint32, n),
+            np.fromiter((k == "w" for k, _a, _v in ops), np.uint8, n),
+            np.fromiter((a for _k, a, _v in ops), np.uint32, n),
+            np.fromiter((v for _k, _a, v in ops), np.uint32, n),
+        )
+
     def _sorted_rows(self) -> np.ndarray:
         """int64 [n2, 4] rows (clk, kind, addr, value): static merged,
         sorted by (addr, clk, static first; ties stable = execution
@@ -150,28 +181,21 @@ class MemoryChip(Chip):
         """
         if self._rows_cache is not None:
             return self._rows_cache
+        mclk, mwrite, maddr, mvalue = self.op_arrays()
         n_static = len(self.static_data)
-        n_ops = sum(len(v) for v in self.operations.values())
-        n = n_static + n_ops
+        n = n_static + len(mclk)
         if n == 0:
             self._rows_cache = np.zeros((1, 4), dtype=np.int64)
             return self._rows_cache
-        clk = np.zeros(n, dtype=np.int64)
-        kind = np.full(n, 3, dtype=np.int64)
-        addr = np.fromiter(
-            (a for a in self.static_data.keys()), np.int64, n_static)
-        value = np.fromiter(
-            (v for v in self.static_data.values()), np.int64, n_static)
-        ops = [op for ck in self.operations for op in self.operations[ck]]
-        clk[n_static:] = np.fromiter(
-            (ck for ck in self.operations for _ in self.operations[ck]),
-            np.int64, n_ops)
-        kind[n_static:] = np.fromiter(
-            (1 if k == "r" else 2 for k, _a, _v in ops), np.int64, n_ops)
-        addr = np.concatenate(
-            [addr, np.fromiter((a for _k, a, _v in ops), np.int64, n_ops)])
-        value = np.concatenate(
-            [value, np.fromiter((v for _k, _a, v in ops), np.int64, n_ops)])
+        static_addr = np.fromiter(self.static_data.keys(), np.int64, n_static)
+        static_value = np.fromiter(self.static_data.values(), np.int64,
+                                   n_static)
+        clk = np.concatenate([np.zeros(n_static, np.int64),
+                              mclk.astype(np.int64)])
+        kind = np.concatenate([np.full(n_static, 3, np.int64),
+                               1 + mwrite.astype(np.int64)])
+        addr = np.concatenate([static_addr, maddr.astype(np.int64)])
+        value = np.concatenate([static_value, mvalue.astype(np.int64)])
         order = np.lexsort((kind != 3, clk, addr))
         rows = np.stack([clk, kind, addr, value], axis=1)[order]
         n2 = 1 << max((n - 1).bit_length(), 0)

@@ -1,8 +1,9 @@
 """BasicMachine: the canonical Valida machine (the Rust reference's 14
 chips and the byte chip).
 
-Counterpart of valida_tpu/machine/basic.py.  The step interpreter runs on
-the host; the prover builds the op-log chips' traces on its device.
+Counterpart of valida_tpu/machine/basic.py.  The interpreter runs on the
+host, as the Python step loop (`run`) or the C++ core (`run_native`); the
+prover builds the op-log chips' traces on its device.
 
 Mirrors `basic/src/lib.rs:66-124`: chip order [cpu, program, mem, add, sub,
 mul, div, shift, lt, com, bitwise, output, range, static_data]; bus
@@ -183,6 +184,22 @@ class BasicMachine(Machine):
             fn(self, iw.operands)
         self._program.read_word(pc)
         return DID_STOP if iw.opcode == OC.STOP else DID_NOT_STOP
+
+    def run_native(self, advice_bytes: bytes = b"",
+                   build_lists: bool = True):
+        """Execute the loaded program with the C++ interpreter core
+        (native/), leaving the chips in the state `run` leaves them in.
+
+        build_lists=False hands the op logs to the chips as numpy arrays
+        (the trace builders read them; the Python logs stay empty).  Raises
+        `native.NativeRunError` if the core cannot be built or loaded: it
+        never falls back to `run`."""
+        from ..native import run_native
+
+        run_native(self, build_lists=build_lists, advice=advice_bytes)
+        # memory/output sort-delta limbs feed the range bus
+        self._mem.register_range_checks(self)
+        self._output.register_range_checks(self)
 
     def run(self, program: ProgramROM | None = None,
             advice: AdviceProvider | None = None):
