@@ -55,18 +55,35 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
        package's, the port's verifier, and the two tampers of (f);
    (k) the same by `run_native(build_lists=False)`: its op arrays held to
        (h)'s logs converted, then as (h);
+   then the staged prover (`prove_jit`: each stage a CUDA graph captured
+   at its first call and replayed after), the kernel calls of its eager
+   first runs recorded and held against plain, the graphs released after
+   each path:
+   (f' jit), (g' jit) (f') and (g') by `prove_jit`, twice each (the second
+       replays only), to the same SHA-256 pins;
+   (h' jit) (h') by `prove_jit` to its pin, then the same ALU loop with one
+       immediate changed, whose prove must replay the same graphs (no new
+       capture) and give the eager prover's bytes of that program;
    then two machine compositions by the C++ core in array mode, each proof
    held to the SHA-256 of the JAX package's: (x) `ExtendedMachine` (the
    native field chip) and (l) `LoadStoreMachine` (no ALU chips);
-   then (cli): `python -m valida_tpu_torch.tooling.cli` asm, run, prove and
-   verify of tests/programs/fibonacci.val, each in a process of its own:
-   the output tape, the proof file's SHA-256, verify's exit 0 and a
+   then (cli): `python -m valida_tpu_torch.tooling.cli` asm, run, prove
+   and verify of tests/programs/fibonacci.val, each in a process of its
+   own: the output tape, the proof file's SHA-256, verify's exit 0 and a
    flipped byte's exit 1 (prove's launch counters read in its process);
+   then `prove --jit`, its file's SHA-256 and its time beside prove's;
 5. times each kernel at the main path's shapes with CUDA events, beside its
    bound and its plain version, and times commits (b) and (c), the NTT,
    (d)'s commit and opening, (f)'s and (k)'s prove (median of 5, by stage,
-   memory peak) and verify, each with a profile, and (h)'s prove by stage
-   beside (k)'s;
+   memory peak; (k): median of 3) and verify, each with a profile, and
+   (h)'s prove by stage beside (k)'s; then path (j): (k)'s machine and op
+   arrays under `default_config(debug_checks=False)` by `warmup_jit`
+   (timed, kernel calls recorded) and `prove_jit`: its bytes held to an
+   eager prove's in this run, its roots to (h)'s pins, the port's verifier
+   and the two tampers, no capture in a warm prove, the median of 5
+   proves, the memory peak with the graph pool, one prove by stage and one
+   profiled, whose host launch calls print beside (k)'s and whose runs of
+   our kernels on the device, and launches counted, must equal (k)'s;
 6. prints one JSON line of kernels, then the device line last.
 Any mismatch, build failure or launch error raises: the exit code is then
 non-zero and the last line is not printed.  With no GPU it exits 1.
@@ -439,12 +456,16 @@ def trace(log_n, cols):
 def run_cli(log) -> dict:
     """Path (cli): `python -m valida_tpu_torch.tooling.cli` asm, run,
     prove and verify of CLI_PROGRAM with CLI_ADVICE, each action in a
-    process of its own on the card.  Checks the output tape, the proof
-    file's SHA-256 against CLI_GOLDEN, verify's exit 0 and a flipped byte's
-    exit 1.  Returns the prove process's kernel launch counts."""
+    process of its own on the card, and `prove --jit` (one prove_jit, whose
+    every stage captures) timed beside `prove`.  Checks the output tape,
+    each proof file's SHA-256 against CLI_GOLDEN, verify's exit 0 and a
+    flipped byte's exit 1.  Returns the prove process's kernel launch
+    counts."""
     import tempfile
 
     cli = [sys.executable, "-m", "valida_tpu_torch.tooling.cli"]
+
+    seconds = {}
 
     def call(args, expect, command=cli):
         t0 = time.perf_counter()
@@ -454,15 +475,16 @@ def run_cli(log) -> dict:
             raise RuntimeError(f"cli {args[0]}: exit {proc.returncode}, "
                                f"expected {expect}:\n{proc.stdout}"
                                f"{proc.stderr}")
-        log(f"cli {' '.join(os.path.basename(a) for a in args)}: exit "
-            f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
+        label = " ".join(os.path.basename(a) for a in args)
+        seconds[label] = time.perf_counter() - t0
+        log(f"cli {label}: exit {proc.returncode} in {seconds[label]:.3f} s")
         return proc.stdout
 
     with tempfile.TemporaryDirectory() as d:
-        prog, tape, advice, proof, bad = (
+        prog, tape, advice, proof, proof_jit, bad = (
             os.path.join(d, f) for f in ("prog.bin", "out.tape",
                                          "advice.bin", "proof.cbor",
-                                         "bad.cbor"))
+                                         "proof_jit.cbor", "bad.cbor"))
         with open(advice, "wb") as f:
             f.write(CLI_ADVICE)
         call(["asm", CLI_PROGRAM, prog], 0)
@@ -489,6 +511,19 @@ def run_cli(log) -> dict:
             raise RuntimeError(f"cli prove: the proof file's sha256 is "
                                f"{digest}, the JAX package's {CLI_GOLDEN}")
         log(f"cli prove: {len(blob)} bytes, sha256 == JAX package's")
+        out = call(["prove", prog, proof_jit, advice, "--jit"], 0,
+                   [sys.executable, "-c", CLI_COUNTING])
+        log("cli prove --jit launches: " + next(
+            line for line in out.splitlines() if line.startswith("launches ")))
+        with open(proof_jit, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        if digest != CLI_GOLDEN:
+            raise RuntimeError(f"cli prove --jit: the proof file's sha256 is "
+                               f"{digest}, the JAX package's {CLI_GOLDEN}")
+        log(f"cli prove --jit: sha256 == JAX package's; the process took "
+            f"{seconds['prove prog.bin proof_jit.cbor advice.bin --jit']:.3f}"
+            f" s against prove's "
+            f"{seconds['prove prog.bin proof.cbor advice.bin']:.3f} s")
         call(["verify", prog, proof], 0)
         flipped = bytearray(blob)
         flipped[-20] ^= 1  # a late byte: an opened value
@@ -516,7 +551,8 @@ def main() -> int:
     from valida_tpu_torch.crypto.challenger import DuplexChallenger
     from valida_tpu_torch.chips.alu import _ops_to_arrays
     from valida_tpu_torch.core.program import ProgramROM
-    from valida_tpu_torch.machine import compositions, examples
+    from valida_tpu_torch.core import opcodes as OC
+    from valida_tpu_torch.machine import compositions, examples, jit_prover
     from valida_tpu_torch.machine.basic import BasicMachine
     from valida_tpu_torch.machine.verifier import VerificationError
     from valida_tpu_torch.native import ALU_LOGS
@@ -685,7 +721,10 @@ def main() -> int:
 
     # 4. the main path: three commits, the launch counters around each.
     # Every kernel call is recorded (its input, and its output as the kernel
-    # left it) and then held against the plain version on the same input.
+    # left it) and held against the plain version on the same input as it
+    # returns.  A launch being captured into a CUDA graph is not: it runs
+    # at the graph's replays, and the staged prover's eager first run of
+    # the same stage was recorded.
     # the C entries' arguments after (input, output), to the plain version
     plain_of = {
         "ntt_dif_whole": lambda x, pw, log_n, rest_n, t_max:
@@ -698,7 +737,8 @@ def main() -> int:
             keccak.keccak256_words_plain(w),
         "poseidon2": lambda w, batch, n_words: p2.hash_words_plain(w),
     }
-    calls = []
+    calls = []  # (kernel, input shape) of each call held against plain
+    recording = [""]  # the path being recorded
     small_seen, passed_over = {}, {}
     launch = _build.launch
     # a proof makes some 230 hash calls, most of them on a few rows: all
@@ -708,6 +748,11 @@ def main() -> int:
     sample_small = [False]
 
     def recording_launch(lib_name, fn, x, y, *rest):
+        if torch.cuda.is_current_stream_capturing():
+            # a launch being captured into a graph runs at the graph's
+            # replays: the stage's eager first run was recorded instead
+            launch(lib_name, fn, x, y, *rest)
+            return
         name = fn.removesuffix("_launch")
         if (sample_small[0] and name in ("poseidon2", "keccak256")
                 and x.shape[0] <= SMALL_HASH):
@@ -718,13 +763,17 @@ def main() -> int:
                 return
         x_in = x.clone()
         launch(lib_name, fn, x, y, *rest)
-        calls.append((name, x_in, y.clone(), rest))
+        # held at once, so that no recorded tensor outlives its call
+        check(name, y, plain_of[name](x_in, *rest),
+              f"{recording[0]} input {tuple(x_in.shape)}")
+        calls.append((name, tuple(x_in.shape)))
 
     def run_recorded(what, needed, forbidden, fn, sample=False):
         """Run fn() with the launch counters at 0 and every kernel call
-        recorded; require the path's kernels to have launched and the
-        forbidden ones not to; hold every recorded call against the plain
-        version.  Returns (fn's result, the counters)."""
+        recorded and held against the plain version as it returns;
+        require the path's kernels to have launched and the forbidden ones
+        not to.  Returns (fn's result, the counters)."""
+        recording[0] = what
         calls.clear()
         small_seen.clear()
         passed_over.clear()
@@ -738,7 +787,10 @@ def main() -> int:
         finally:
             _build.launch = launch
         counts = dict(_build.LAUNCHES)
-        log(f"{what} launches: {counts}")
+        replayed = dict(_build.GRAPH_LAUNCHES)
+        log(f"{what} launches: {counts}"
+            + (f", of which by CUDA graph replays {replayed}"
+               if any(replayed.values()) else ""))
         missing = [k for k in needed if counts[k] == 0]
         if missing:
             raise RuntimeError(f"{what} launched none of {missing}")
@@ -746,12 +798,11 @@ def main() -> int:
         if extra:
             raise RuntimeError(f"{what} must not launch {extra}")
         seen = {}
-        for name, x_in, y, rest in calls:
-            check(name, y, plain_of[name](x_in, *rest),
-                  f"{what} input {tuple(x_in.shape)}")
-            seen.setdefault(name, []).append(tuple(x_in.shape))
+        for name, shape in calls:
+            seen.setdefault(name, []).append(shape)
         held = {k: len(v) + passed_over.get(k, 0) for k, v in seen.items()}
-        if held != {k: n for k, n in counts.items() if n}:
+        if held != {k: n - replayed[k] for k, n in counts.items()
+                    if n - replayed[k]}:
             raise RuntimeError(f"{what}: recorded calls do not match the "
                                f"launch counters")
         log(f"{what}: {len(calls)} of {sum(counts.values())} kernel calls "
@@ -885,6 +936,46 @@ def main() -> int:
             check_tampers(what, machine, cfg, proof)
             machine_state = dict(machine=machine, cfg=cfg, proof=proof)
 
+    def prove_jit_twice(label, path, machine, cfg, needed, forbidden, pin):
+        """A path of the staged prover: the first prove runs each stage
+        eagerly once (its kernel calls recorded and held against plain),
+        captures it and replays it; the second only replays.  Both proofs
+        must serialize to `pin` (a SHA-256).  Returns the second proof."""
+        for run in ("first", "warm"):
+            what = f"{path}, prove_jit {run}"
+            captures = jit_prover.stats["captures"]
+            t0 = time.perf_counter()
+            proof, launches[f"{label} {run}"] = run_recorded(
+                what, needed, forbidden,
+                lambda: jit_prover.prove_jit(machine, cfg), sample=True)
+            t_prove = time.perf_counter() - t0
+            new = jit_prover.stats["captures"] - captures
+            digest = hashlib.sha256(serialize_proof(proof)).hexdigest()
+            log(f"{what}: {t_prove:.2f} s, {new} graphs captured, "
+                f"{len(jit_prover.STAGE_LOG)} stage calls, sha256 {digest}")
+            if digest != pin:
+                raise RuntimeError(f"{what}: sha256 is {digest}, the JAX "
+                                   f"package's is {pin}")
+            if run == "warm" and new:
+                raise RuntimeError(f"{what}: a warm prove captured {new} "
+                                   f"graphs")
+        log(f"{path}: sha256 == JAX package's, first and warm")
+        return proof
+
+    # the staged prover on (f') and (g')
+    for path in ("f'", "g'"):
+        log_pairs, hasher, needed, forbidden = MACHINE_PATHS[path]
+        machine = examples.random_ragged_machine(1 << log_pairs, seed=7)
+        cfg = default_config(hasher=hasher)
+        proof = prove_jit_twice(
+            f"{path} jit",
+            f"machine ({path} jit) random_ragged_machine(2^{log_pairs}, "
+            f"seed=7) {hasher}", machine, cfg, needed, forbidden,
+            MACHINE_GOLDEN[path])
+        machine.verify(cfg, proof)
+    jit_prover.release_graphs()
+    torch.cuda.empty_cache()
+
     # the BasicMachine: (n) fib(25) and (h') the ALU loop at 2^13 cycles,
     # whole proofs pinned, (h') by each of the three interpreters; (h) and
     # (k) the ALU loop at 2^20 cycles by the Python step loop and by the
@@ -984,6 +1075,42 @@ def main() -> int:
             check_tampers(what, machine, cfg, proof)
             basic_state[path] = dict(machine=machine, cfg=cfg, proof=proof,
                                      interpret_s=t_interp)
+
+    # the staged prover on (h'), then on the same loop with the divisor's
+    # immediate changed from 3 to 5: the same shapes, so the same graphs
+    # replay with the other program's ROM and values
+    cfg = default_config()
+    prove_jit_twice("h' jit", "basic (h' jit) ALU loop 2^13 cycles by arrays",
+                    basic_machine(13, "arrays"), cfg, *BASIC_KERNELS,
+                    BASIC_GOLDEN["h'"])
+    program = examples.alu_loop_program((1 << 13) // 14)
+    if program[1] != examples.instruction(OC.IMM32, -8, 0, 0, 0, 3):
+        raise RuntimeError("the ALU loop's second instruction is not the "
+                           "divisor's immediate")
+    program[1] = examples.instruction(OC.IMM32, -8, 0, 0, 0, 5)
+    variant = BasicMachine()
+    variant.program().set_program_rom(ProgramROM(program))
+    variant.cpu().fp = 0x1000000
+    variant.run_native(build_lists=False)
+    what = "basic (h' jit variant) ALU loop 2^13 cycles, divisor 5"
+    captures = jit_prover.stats["captures"]
+    proof, launches["h' jit variant"] = run_recorded(
+        what, *BASIC_KERNELS, lambda: jit_prover.prove_jit(variant, cfg),
+        sample=True)
+    new = jit_prover.stats["captures"] - captures
+    blob = serialize_proof(proof)
+    digest = hashlib.sha256(blob).hexdigest()
+    if new or blob != serialize_proof(variant.prove(cfg)):
+        raise RuntimeError(f"{what}: {new} graphs captured (expected 0), or "
+                           f"the bytes differ from the eager prover's")
+    if digest == BASIC_GOLDEN["h'"]:
+        raise RuntimeError(f"{what}: the variant's proof is (h')'s")
+    variant.verify(cfg, proof)
+    log(f"{what}: no graph captured, bytes == the eager prover's (sha256 "
+        f"{digest}, not (h')'s), verified on the host")
+    jit_prover.release_graphs()
+    torch.cuda.empty_cache()
+    del variant
 
     # the compositions, interpreted by the C++ core in array mode
     for path, (cls, asm) in COMPOSITION_PATHS.items():
@@ -1118,12 +1245,14 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     def profile_run(what, fn):
+        before = dict(_build.LAUNCHES)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        counted = {k: _build.LAUNCHES[k] - n for k, n in before.items()}
         by_name, n_ops = {}, 0
         # a record_function range (the prover's stages) also shows on the
         # device's timeline, spanning the kernels inside it: its name is
@@ -1136,13 +1265,30 @@ def main() -> int:
                 n_ops += 1
         ours = {k: sum(t for name, t in by_name.items()
                        if f"{k}_kernel(" in name) for k in SOURCES}
+        # the device's kernel runs of each of ours (an NTT call runs one
+        # per pass), beside the launches the wrappers and replays counted
+        kernel_runs = {k: 0 for k in SOURCES}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.name not in host_names:
+                for k in SOURCES:
+                    if f"{k}_kernel(" in e.name:
+                        kernel_runs[k] += 1
         busy = sum(by_name.values())
         if busy <= 0:
             raise RuntimeError(f"{what}: the profile shows no device time")
+        # the host's launch calls: kernel and graph launches through the
+        # CUDA API, as the profiler's CPU side records them
+        calls = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and (
+                    "LaunchKernel" in e.name or "GraphLaunch" in e.name):
+                calls[e.name] = calls.get(e.name, 0) + 1
         log(f"{what} profile (under the profiler {wall_us / 1e3:.3f} ms "
             f"wall): {n_ops} device operations, device busy "
-            f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}; by "
-            f"kernel (ms): "
+            f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}; host "
+            f"launch calls {calls}; our kernels' runs on the device "
+            f"{kernel_runs} for the launches counted {counted}; by kernel "
+            f"(ms): "
             + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in ours.items())
             + f", other PyTorch kernels "
               f"{(busy - sum(ours.values())) / 1e3:.3f}")
@@ -1160,6 +1306,10 @@ def main() -> int:
                 inside = sum(t for s, t in kernels if t0 <= s < t1)
                 log(f"  stage {e.name}: span {(t1 - t0) / 1e3:.3f} ms on the "
                     f"device's timeline, device busy {inside / 1e3:.3f} ms")
+        return {"wall_ms": wall_us / 1e3, "device_ops": n_ops,
+                "busy_ms": busy / 1e3, "idle": 1 - busy / wall_us,
+                "launch_calls": calls, "kernel_runs": kernel_runs,
+                "launches": counted}
 
     for shape in [(19, 128), (19, 51)]:
         profile_run(f"commit 2^{shape[0]} x {shape[1]}",
@@ -1206,11 +1356,11 @@ def main() -> int:
     # clock spreads: the median of 5 proofs beside the best; then one proof
     # with the device's memory peak, one with the stage collection (each
     # stage waits for the card at its end) and one under the profiler
-    def staged_prove(what, machine, cfg):
+    def staged_prove(what, prove):
         """One prove with the stage collection on: host ms by stage."""
         utils.start_stage_collection()
         t0 = time.perf_counter()
-        machine.prove(cfg)
+        prove()
         t_staged = (time.perf_counter() - t0) * 1e3
         stages = utils.stop_stage_collection()
         log(f"{what} prove by stage (host wall-clock, the card synchronised "
@@ -1221,27 +1371,39 @@ def main() -> int:
               f"{t_staged - sum(v['s'] for v in stages.values()) * 1e3:.3f}"
               f" ms")
 
-    def time_machine(what, state, verify_before):
+    def time_machine(what, state, verify_before=None, prove=None, runs=5):
+        """The median of `runs` proves beside the best, one prove's memory
+        peak, one by stage and one profiled (prove: the prove to time, by
+        default Machine.prove), then 3 verifies unless verify_before is
+        None.  Returns the numbers."""
         machine, cfg = state["machine"], state["cfg"]
-        proves = wall_ms(lambda: machine.prove(cfg), 5)
+        prove = prove or (lambda: machine.prove(cfg))
+        proves = wall_ms(prove, runs)
+        median = sorted(proves)[len(proves) // 2]
         log(f"{what} prove wall-clock: best {min(proves):.3f} ms, median "
-            f"of {len(proves)} {sorted(proves)[len(proves) // 2]:.3f} ms, "
+            f"of {len(proves)} {median:.3f} ms, "
             f"all " + " ".join(f"{t:.3f}" for t in proves))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        machine.prove(cfg)
+        prove()
         torch.cuda.synchronize()
-        log(f"{what} prove device memory: peak "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated "
-            f"({base / 2**30:.3f} GiB held before it), "
-            f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved")
-        staged_prove(what, machine, cfg)
-        profile_run(f"{what} prove", lambda: machine.prove(cfg))
-        verifies = wall_ms(lambda: machine.verify(cfg, state["proof"]), 3)
-        log(f"{what} verify wall-clock (host): best {min(verifies):.3f} ms, "
-            f"all " + " ".join(f"{t:.3f}" for t in verifies)
-            + verify_before)
+        peak = (torch.cuda.max_memory_allocated() / 2**30,
+                torch.cuda.max_memory_reserved() / 2**30)
+        log(f"{what} prove device memory: peak {peak[0]:.3f} GiB allocated "
+            f"({base / 2**30:.3f} GiB held before it), {peak[1]:.3f} GiB "
+            f"reserved")
+        staged_prove(what, prove)
+        out = profile_run(f"{what} prove", prove)
+        out.update(median_ms=median, best_ms=min(proves),
+                   peak_allocated_gib=peak[0], peak_reserved_gib=peak[1])
+        if verify_before is not None:
+            verifies = wall_ms(lambda: machine.verify(cfg, state["proof"]),
+                               3)
+            log(f"{what} verify wall-clock (host): best "
+                f"{min(verifies):.3f} ms, all "
+                + " ".join(f"{t:.3f}" for t in verifies) + verify_before)
+        return out
 
     time_machine("machine (f)", machine_state,
                  " (PR 5, before the host Keccak was numpy: 4144.306, "
@@ -1253,10 +1415,87 @@ def main() -> int:
     log(f"basic ALU loop 2^20 cycles interpretation on the host: (h) run "
         f"{h['interpret_s']:.3f} s, (k) run_native(build_lists=False) "
         f"{k['interpret_s']:.3f} s")
-    staged_prove("basic (h) ALU loop 2^20 cycles by run", h["machine"],
-                 h["cfg"])
+    staged_prove("basic (h) ALU loop 2^20 cycles by run",
+                 lambda: h["machine"].prove(h["cfg"]))
     del h
-    time_machine("basic (k) ALU loop 2^20 cycles by arrays", k, "")
+    # 3 timed proves, not 5: (j) below keeps the script near its length
+    timed_k = time_machine("basic (k) ALU loop 2^20 cycles by arrays", k, "",
+                           runs=3)
+
+    # path (j): (k)'s machine and op arrays through the staged prover,
+    # without the debug checks (benchmarks/big_trace.py's configuration)
+    machine, cfg = k["machine"], default_config(debug_checks=False)
+    what = "basic (j) ALU loop 2^20 cycles by arrays, staged"
+    t0 = time.perf_counter()
+    want = serialize_proof(machine.prove(cfg))
+    log(f"{what}: the eager prover's proof of it in "
+        f"{time.perf_counter() - t0:.1f} s, {len(want)} bytes")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    n_calls, launches["j warmup"] = run_recorded(
+        f"{what} warmup_jit", *BASIC_KERNELS,
+        lambda: jit_prover.warmup_jit(machine, cfg), sample=True)
+    log(f"{what}: warmup_jit (kernel calls recorded) in "
+        f"{time.perf_counter() - t0:.1f} s: {n_calls} stage calls, "
+        f"{jit_prover.stats['captures']} graphs captured; memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated "
+        f"({base / 2**30:.3f} GiB held before it), "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved")
+    captures = jit_prover.stats["captures"]
+    proof, launches["j"] = run_recorded(
+        what, *BASIC_KERNELS, lambda: jit_prover.prove_jit(machine, cfg))
+    if jit_prover.stats["captures"] != captures:
+        raise RuntimeError(f"{what}: a warm prove_jit captured "
+                           f"{jit_prover.stats['captures'] - captures} graphs")
+    if serialize_proof(proof) != want:
+        raise RuntimeError(f"{what}: the bytes differ from the eager "
+                           f"prover's proof in this run")
+    roots = [words_hex(proof.commitments.preprocessed),
+             words_hex(proof.commitments.main_trace)]
+    if roots != H_ROOTS:
+        raise RuntimeError(f"{what}: preprocessed and main roots {roots}, "
+                           f"the JAX package's {H_ROOTS}")
+    machine.verify(cfg, proof)
+    log(f"{what}: no graph captured, bytes == the eager prover's, roots == "
+        f"JAX package's, verified on the host")
+    check_tampers(what, machine, cfg, proof)
+    timed_j = time_machine(
+        what, dict(machine=machine, cfg=cfg),
+        prove=lambda: jit_prover.prove_jit(machine, cfg))
+    # the graphs hold what the eager prover launches: the profiled staged
+    # prove ran as many of each of our kernels on the device as the
+    # profiled eager prove of (k), the same machine; its graph replays
+    # counted as many launches as (k)'s wrappers did; and a Keccak launch
+    # is one kernel run on the device, in both
+    for key in ("kernel_runs", "launches"):
+        if timed_j[key] != timed_k[key]:
+            raise RuntimeError(f"{what}: {key} {timed_j[key]}, the eager "
+                               f"prove's {timed_k[key]}")
+    for t in (timed_j, timed_k):
+        if (t["kernel_runs"]["keccak256"] != t["launches"]["keccak256"]
+                or not all(t["kernel_runs"][k] for k in BASIC_KERNELS[0])):
+            raise RuntimeError(f"{what}: kernel runs {t['kernel_runs']} on "
+                               f"the device for launches {t['launches']}")
+    log(f"{what}: our kernels' runs on the device in a warm prove equal the "
+        f"eager prove's {timed_k['kernel_runs']}, and its counted launches "
+        f"the eager prove's {timed_k['launches']}")
+    log("(j) beside (k), this call: " + "; ".join(
+        f"{key} {timed_j[key]} against {timed_k[key]}"
+        for key in ("median_ms", "best_ms", "busy_ms", "idle", "device_ops",
+                    "launch_calls", "peak_allocated_gib",
+                    "peak_reserved_gib")))
+    del proof
+    jit_prover.release_graphs()
+    torch.cuda.empty_cache()
+
+    # the launches of every path, (j) included
+    for entry in kernels:
+        entry["launches_per_path"] = {p: n[entry["name"]]
+                                      for p, n in launches.items()}
+        entry["launches"] = sum(entry["launches_per_path"].values())
 
     # 6. results
     print(json.dumps({"kernels": kernels}), flush=True)

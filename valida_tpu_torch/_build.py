@@ -44,8 +44,14 @@ SIGNATURES = {
 }
 
 # launches of each kernel, counted by its wrapper where it launches
+# (`count_launch`).  A launch being captured into a CUDA graph runs only at
+# the graph's replays: it goes to CAPTURED, and each replay
+# (machine/jit_prover.py) adds the launches its graph holds here and in
+# GRAPH_LAUNCHES.
 LAUNCHES = {"ntt_dif_whole": 0, "ntt_dif_ragged": 0, "keccak256": 0,
             "poseidon2": 0}
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
+GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 _LIBS: dict = {}
 
@@ -53,6 +59,15 @@ _LIBS: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        GRAPH_LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel `name` (see LAUNCHES)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

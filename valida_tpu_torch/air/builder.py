@@ -18,10 +18,9 @@ promotion; python ints are canonical constants.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..convert import from_reference
+from ..convert import index_tensor
 from ..field import babybear as bb
 from ..field import ext as extf
 from ..poly.ntt import _mod_sum
@@ -309,7 +308,7 @@ class VectorBuilder(BaseBuilder):
             return None
         # alpha powers [k, 5] by doubling
         a = self.alpha._as_ext()
-        arr = extf.ext_const(extf.E_ONE, self.device)[None, :]
+        arr = extf.ext_one(self.device)[None, :]
         cur = a[None, :] if a.dim() == 1 else a
         length = 1
         while length < k:
@@ -330,9 +329,8 @@ class VectorBuilder(BaseBuilder):
                 torch.broadcast_to(self.collected[i].arr, shape)
                 for i in base_idx
             ], dim=0)  # [K_base, Q]
-            apows = arr[from_reference(
-                np.array([k - 1 - i for i in base_idx], dtype=np.uint32),
-                self.device).long()]  # [K_base, 5]
+            apows = arr.index_select(0, index_tensor(  # [K_base, 5]
+                tuple(k - 1 - i for i in base_idx), self.device))
             apows = apows.reshape(apows.shape[:1] + (1,) * len(shape) + (5,))
             comps = [_mod_sum(bb.mul(stack, apows[..., d]), axis=0)
                      for d in range(5)]

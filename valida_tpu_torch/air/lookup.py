@@ -78,7 +78,7 @@ def _ext_powers_arr(ch_m, count, skip_first=False):
     out = []
     acc = ch_m
     if not skip_first:
-        out.append(extf.ext_const(extf.E_ONE, ch_m.device))
+        out.append(extf.ext_one(ch_m.device))
         count -= 1
     for _ in range(count):
         out.append(acc)
@@ -119,22 +119,43 @@ def perm_cols_and_terms(machine, chip, main_m, prep_m, challenges):
     return cols, terms
 
 
-def padded_prep(chip, n: int, device):
-    """The chip's preprocessed trace as a canonical int32 tensor of n rows
-    (zero rows appended), or None."""
-    prep = chip.preprocessed_trace()
+def padded_prep(chip, n: int, device, prep=None):
+    """The chip's preprocessed trace (or `prep`, a canonical int32 tensor
+    in its place) as a canonical int32 tensor of n rows (zero rows
+    appended), or None."""
     if prep is None:
-        return None
-    prep = from_reference(np.asarray(prep, dtype=np.uint32), device)
+        prep = chip.preprocessed_trace()
+        if prep is None:
+            return None
+        prep = from_reference(np.asarray(prep, dtype=np.uint32), device)
     if int(prep.shape[0]) < n:
         pad = prep.new_zeros((n - int(prep.shape[0]), int(prep.shape[1])))
         prep = torch.cat([prep, pad], dim=0)
     return prep[:n]
 
 
-def generate_permutation_trace(machine, chip, main_trace, challenges):
+def phi_column(terms: torch.Tensor, carry=None) -> torch.Tensor:
+    """Running sum of the [N, 5] Montgomery phi increments (plus `carry`,
+    a [5] Montgomery value before the first row): an int64 prefix sum per
+    coefficient (a scan over the rows of a [N, 5] array runs 5 serial
+    lanes on the GPU) and one `% p`; every term is below p, so the sum is
+    exact below 2^32 rows."""
+    coeffs = terms.to(torch.int64).t().contiguous()
+    phi = torch.stack([torch.cumsum(c, dim=0) for c in coeffs], dim=1)
+    if carry is not None:
+        phi = phi + carry.to(torch.int64)[None, :]
+    return (phi % bb.P).to(torch.int32)
+
+
+def generate_permutation_trace(machine, chip, main_trace, challenges,
+                               prep=None):
     """main_trace: canonical int32 tensor [N, C]; challenges: 3 ext values
-    (host tuples).  The chip's preprocessed trace is zero-padded to N rows.
+    as host tuples, or a canonical int32 [3, 5] tensor (a staged prover
+    passes the tensor, so that its captured stage reads the challenges
+    rather than baking them in).  prep: the chip's preprocessed trace as a
+    canonical int32 tensor, or None to read `chip.preprocessed_trace()`
+    (a staged prover passes it, for the same reason); zero-padded to N
+    rows.
 
     Returns the permutation trace as an ext tensor [N, n_interactions + 1,
     5] Montgomery on main_trace's device, the last ext column the running
@@ -143,21 +164,16 @@ def generate_permutation_trace(machine, chip, main_trace, challenges):
     dev = main_trace.device
     n = int(main_trace.shape[0])
     main_m = bb.to_monty(main_trace)
-    prep = padded_prep(chip, n, dev)
+    prep = padded_prep(chip, n, dev, prep)
     prep_m = bb.to_monty(prep) if prep is not None else None
-    challenges = from_reference(np.array(challenges, dtype=np.uint32), dev)
-
+    if not isinstance(challenges, torch.Tensor):
+        challenges = from_reference(np.array(challenges, dtype=np.uint32),
+                                    dev)
     cols, terms = perm_cols_and_terms(machine, chip, main_m, prep_m,
                                       challenges)
     if not cols:
         return torch.zeros((n, 1, 5), dtype=torch.int32, device=dev)
-    # phi: prefix sum of sum_m (+-) q_m * count_m, one 1-D scan per
-    # coefficient (a scan over the rows of a [N, 5] array runs 5 serial
-    # lanes on the GPU)
-    coeffs = terms.to(torch.int64).t().contiguous()
-    phi = torch.stack([torch.cumsum(c, dim=0) for c in coeffs], dim=1)
-    phi = (phi % bb.P).to(torch.int32)
-    return torch.stack(cols + [phi], dim=1)
+    return torch.stack(cols + [phi_column(terms)], dim=1)
 
 
 def cumulative_sum(perm_trace):
@@ -242,8 +258,12 @@ def eval_permutation_constraints(chip, builder, cumulative_sum_value):
 
 
 def _cum_sum_expr(builder, cs):
+    """The cumulative sum as a builder value: a host ext tuple, or (vector
+    mode) a canonical int32 [5] tensor."""
     if isinstance(builder.perm_challenges[0], SymExpr):
         return SymExpr(0)
     if isinstance(builder.perm_challenges[0], SVal):
         return SVal(tuple(cs))
+    if isinstance(cs, torch.Tensor):
+        return VVal(bb.to_monty(cs), True)
     return VVal(extf.ext_const(tuple(cs), builder.device), True)

@@ -1,17 +1,20 @@
 """Quotient polynomial evaluation and chunk decomposition.
 
 Counterpart of valida_tpu/air/quotient.py (the Rust machine crate's
-quotient.rs): the whole quotient domain is evaluated at once as tensor
-operations on the prover's device.  Every constraint is a vector
-expression over [Q] Montgomery tensors, `next` rows are wraparound rolls,
-and the zerofier inverse is a closed-form periodic vector.
+quotient.rs): the whole quotient domain (or one row tile after another,
+`chunk`) is evaluated as tensor operations on the prover's device.  Every
+constraint is a vector expression over [Q] Montgomery tensors, `next` rows
+are wraparound rolls, and the zerofier inverse is a closed-form periodic
+vector.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..convert import from_reference
+from ..convert import table
 from ..field import babybear as bb
 from ..field import ext as extf
 from ..poly import ntt as nttm
@@ -37,13 +40,38 @@ def _ext_cols(mat_m, n_ext):
     return [VVal(mat_m[:, i * 5:(i + 1) * 5], True) for i in range(n_ext)]
 
 
+@functools.lru_cache(maxsize=None)
+def _zerofier_periods(log_degree: int, qd: int, shift: int):
+    """(Z_H, 1/Z_H) over one period of the quotient coset, Montgomery."""
+    zc = ZerofierOnCoset(log_degree, qd, shift)
+    return zc._z_period, zc._zinv_period
+
+
+def _ext_value(e, dev) -> VVal:
+    """A host ext tuple, or a canonical int32 [5] tensor, as an ext VVal."""
+    if isinstance(e, torch.Tensor):
+        return VVal(bb.to_monty(e), True)
+    return VVal(extf.ext_const(tuple(e), dev), True)
+
+
 def quotient_values(machine, chip, log_degree, log_quotient_degree,
                     prep_lde, main_lde, perm_lde, cumulative_sum,
-                    perm_challenges, alpha, pcs_shift, log_blowup):
+                    perm_challenges, alpha, pcs_shift, log_blowup,
+                    chunk=0):
     """Evaluate the folded constraint polynomial / Z_H on the quotient
     domain (natural order).  LDE inputs are Montgomery int32 tensors in
     natural order, height N·2^log_blowup.  Returns the ext tensor
-    [N·2^qd, 5] Montgomery."""
+    [N·2^qd, 5] Montgomery.
+
+    perm_challenges, alpha and cumulative_sum are host ext tuples, or
+    canonical int32 tensors ([3, 5], [5], [5]): a staged prover passes
+    tensors, so that its captured stage reads them rather than baking them
+    in.  chunk (a power of two): evaluate the
+    constraints over row tiles of that many rows, which bounds the
+    temporaries at [chunk, 5] and multiplies the launches by the tile
+    count; 0 evaluates the whole domain at once.  The words are the same
+    either way (every expression is row-wise; the rolls are taken over the
+    whole domain first)."""
     qd = log_quotient_degree
     stride = 1 << (log_blowup - qd)
     next_step = 1 << qd
@@ -52,46 +80,61 @@ def quotient_values(machine, chip, log_degree, log_quotient_degree,
     perm = perm_lde[::stride]
     prep = prep_lde[::stride] if prep_lde is not None else None
     dev = main.device
+    q_size = int(main.shape[0])
 
     def roll(a):
-        return torch.roll(a, -next_step, dims=0)
+        return torch.roll(a, -next_step, dims=0) if a is not None else None
 
     # the [Q] selector vectors, built on the device (the JAX package's
     # device branch; its host branch gives the same words)
-    zc = ZerofierOnCoset(log_degree, qd, pcs_shift)
     sub_last = bb.monty_scalar(bb.h_inv(bb.two_adic_generator(log_degree)))
     xs = coset_points_device(log_degree + qd, pcs_shift, dev)
-    z_full = from_reference(zc._z_period, dev).repeat(1 << log_degree)
-    zinv = from_reference(zc._zinv_period, dev).repeat(1 << log_degree)
+    z_period, zinv_period = table(_zerofier_periods, log_degree, qd,
+                                  pcs_shift % bb.P, device=dev)
+    z_full = z_period.repeat(1 << log_degree)
+    zinv = zinv_period.repeat(1 << log_degree)
     first_v = bb.mul(z_full, bb.inv_batch(bb.sub(xs, bb.monty_scalar(1))))
     last_v = bb.mul(z_full, bb.inv_batch(bb.sub(xs, sub_last)))
     trans_v = bb.sub(xs, sub_last)
 
-    def ext_const(e):
-        return VVal(extf.ext_const(tuple(e), dev), True)
-
+    challenges = [_ext_value(perm_challenges[i], dev) for i in range(3)]
+    alpha_v = _ext_value(alpha, dev)
     n_perm_ext = perm.shape[1] // 5
-    builder = VectorBuilder(
-        machine,
-        main_local=_base_cols(main),
-        main_next=_base_cols(roll(main)),
-        prep_local=_base_cols(prep) if prep is not None else [],
-        prep_next=_base_cols(roll(prep)) if prep is not None else [],
-        perm_local=_ext_cols(perm, n_perm_ext),
-        perm_next=_ext_cols(roll(perm), n_perm_ext),
-        perm_challenges=[ext_const(perm_challenges[i]) for i in range(3)],
-        is_first_row=VVal(first_v, False),
-        is_last_row=VVal(last_v, False),
-        is_transition=VVal(trans_v, False),
-        alpha=ext_const(alpha),
-        trace_height=1 << log_degree,
-    )
-    chip.eval(builder)
-    eval_permutation_constraints(chip, builder, cumulative_sum)
-    acc = builder.fold()
-    if acc is None:
-        return torch.zeros((main.shape[0], 5), dtype=torch.int32, device=dev)
-    return extf.ext_mul_base(acc._as_ext(), zinv)
+    whole = dict(m_l=main, m_n=roll(main), p_l=prep, p_n=roll(prep),
+                 e_l=perm, e_n=roll(perm), tr=trans_v, fi=first_v,
+                 la=last_v, zi=zinv)
+
+    def eval_rows(o):
+        """Fold all constraints over one row block (any length)."""
+        builder = VectorBuilder(
+            machine,
+            main_local=_base_cols(o["m_l"]),
+            main_next=_base_cols(o["m_n"]),
+            prep_local=_base_cols(o["p_l"]) if prep is not None else [],
+            prep_next=_base_cols(o["p_n"]) if prep is not None else [],
+            perm_local=_ext_cols(o["e_l"], n_perm_ext),
+            perm_next=_ext_cols(o["e_n"], n_perm_ext),
+            perm_challenges=challenges,
+            is_first_row=VVal(o["fi"], False),
+            is_last_row=VVal(o["la"], False),
+            is_transition=VVal(o["tr"], False),
+            alpha=alpha_v,
+            trace_height=1 << log_degree,
+        )
+        chip.eval(builder)
+        eval_permutation_constraints(chip, builder, cumulative_sum)
+        acc = builder.fold()
+        if acc is None:
+            return torch.zeros((o["m_l"].shape[0], 5), dtype=torch.int32,
+                               device=dev)
+        return extf.ext_mul_base(acc._as_ext(), o["zi"])
+
+    if chunk and q_size > chunk:
+        return torch.cat([
+            eval_rows({k: (v[r0:r0 + chunk] if v is not None else None)
+                       for k, v in whole.items()})
+            for r0 in range(0, q_size, chunk)], dim=0)
+    return eval_rows(whole)
 
 
 def decompose_and_flatten(q_vals, pcs_shift, log_quotient_degree):

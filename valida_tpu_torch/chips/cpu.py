@@ -196,6 +196,8 @@ class CpuChip(Chip):
 
         def scatter(idx, vals):
             out = torch.zeros(n2, dtype=torch.int64, device=dev)
+            if isinstance(vals, int):  # no host scalar copied in
+                return out.index_fill_(0, idx, vals)
             out[idx] = vals
             return out
 

@@ -7,9 +7,19 @@ import numpy as np
 import torch
 
 
+def _check_transfer(what: str, device) -> None:
+    """Raise inside a CUDA graph capture (machine/jit_prover.py)."""
+    if (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(f"{what} inside a captured stage: the graph would "
+                           f"replay a stale host buffer (make the array a "
+                           f"`table` built by the stage's eager first run)")
+
+
 def from_reference(arr, device="cpu") -> torch.Tensor:
     """u32 array (trace, table, digests; any integer dtype whose values fit
     in 32 bits) -> int32 tensor holding the same bit patterns."""
+    _check_transfer("a host upload", device)
     a = np.asarray(arr)
     if a.dtype != np.uint32:
         if a.size and (a.min() < 0 or a.max() > 0xFFFFFFFF):
@@ -28,6 +38,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 tensor -> np.uint32 array with the same bits."""
     if t.dtype != torch.int32:
         raise TypeError(f"expected int32, got {t.dtype}")
+    _check_transfer("a copy to the host", t.device)
     return t.detach().to("cpu").contiguous().numpy().view(np.uint32).copy()
 
 
@@ -55,6 +66,20 @@ def table(make, *args, device):
         t = (tuple(from_reference(a, device) for a in arr)
              if isinstance(arr, tuple) else from_reference(arr, device))
         _TABLES[key] = t
+    return t
+
+
+_INDICES: dict = {}
+
+
+def index_tensor(indices: tuple, device) -> torch.Tensor:
+    """int64 tensor of fixed indices on `device`, made once (a Python list
+    as an index is copied to the device at every use)."""
+    key = (tuple(indices), str(device))
+    t = _INDICES.get(key)
+    if t is None:
+        t = _INDICES[key] = from_reference(
+            np.asarray(key[0], dtype=np.uint32), device).long()
     return t
 
 

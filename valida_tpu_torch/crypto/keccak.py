@@ -198,7 +198,7 @@ def keccak256_words(words: torch.Tensor) -> torch.Tensor:
     out = torch.empty(batch, DIGEST_WORDS, dtype=torch.int32,
                       device=words.device)
     _build.launch("keccak", "keccak256_launch", words, out, batch, n_words)
-    _build.LAUNCHES["keccak256"] += 1
+    _build.count_launch("keccak256")
     return out
 
 

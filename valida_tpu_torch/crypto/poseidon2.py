@@ -168,7 +168,7 @@ def hash_words(words: torch.Tensor) -> torch.Tensor:
         return out
     _upload_constants(words.device)
     _build.launch("poseidon2", "poseidon2_launch", words, out, batch, n_words)
-    _build.LAUNCHES["poseidon2"] += 1
+    _build.count_launch("poseidon2")
     return out
 
 

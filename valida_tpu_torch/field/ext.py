@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from ..convert import from_reference, table
+from ..convert import from_reference, index_tensor, table
 from . import babybear as bb
 
 D = 5  # extension degree
@@ -44,8 +44,8 @@ def ext_scale(a, s):
 
 # pair (k, i) at flat position 5k + i takes a_i * b_((k-i) mod 5), doubled
 # where the exponent wrapped (i + j >= 5, since x^5 = 2)
-_EM_I = [i for k in range(D) for i in range(D)]
-_EM_J = [(k - i) % D for k in range(D) for i in range(D)]
+_EM_I = tuple(i for k in range(D) for i in range(D))
+_EM_J = tuple((k - i) % D for k in range(D) for i in range(D))
 _EM_OVF = [i + ((k - i) % D) >= D for k in range(D) for i in range(D)]
 
 
@@ -61,7 +61,9 @@ def ext_mul(a, b):
     sum of five stays below 2^35 and the Montgomery factor R^-1 is taken
     once per c_k."""
     a, b = torch.broadcast_tensors(a, b)
-    prod = (a[..., _EM_I].to(torch.int64) * b[..., _EM_J].to(torch.int64)
+    dev = a.device
+    prod = (a.index_select(-1, index_tensor(_EM_I, dev)).to(torch.int64)
+            * b.index_select(-1, index_tensor(_EM_J, dev)).to(torch.int64)
             % bb.P)
     prod = prod * table(_em_factor, device=prod.device)
     c = prod.reshape(prod.shape[:-1] + (D, D)).sum(dim=-1)
@@ -75,7 +77,7 @@ def ext_mul_base(a, s):
 
 def ext_one_like(a):
     one = torch.zeros_like(a)
-    one[..., 0] = bb.ONE
+    one[..., 0].fill_(bb.ONE)
     return one
 
 
@@ -132,6 +134,17 @@ def ext_const(e, device) -> torch.Tensor:
     """Host ext scalar (canonical 5-tuple) -> Montgomery int32 [5]."""
     return from_reference(np.array([bb.monty_scalar(int(c) % bb.P)
                                     for c in e], dtype=np.uint32), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_monty() -> np.ndarray:
+    return np.array([bb.ONE, 0, 0, 0, 0], dtype=np.uint32)
+
+
+def ext_one(device) -> torch.Tensor:
+    """The ext 1 as Montgomery int32 [5], a cached table (so a captured
+    stage may use it)."""
+    return table(_one_monty, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -157,7 +157,7 @@ def dif_whole(a: torch.Tensor, log_n: int, inverse: bool,
     out = torch.empty_like(a)
     _build.launch("ntt", "ntt_dif_whole_launch", a, out, pw, log_n, rest_n,
                   t_max)
-    _build.LAUNCHES["ntt_dif_whole"] += 1
+    _build.count_launch("ntt_dif_whole")
     return out
 
 
@@ -180,7 +180,7 @@ def dif_ragged(a: torch.Tensor, log_n: int, inverse: bool,
     out = torch.empty_like(a)
     _build.launch("ntt", "ntt_dif_ragged_launch", a, out, pw, log_n, rest_n,
                   t_max)
-    _build.LAUNCHES["ntt_dif_ragged"] += 1
+    _build.count_launch("ntt_dif_ragged")
     return out
 
 

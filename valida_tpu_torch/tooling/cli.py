@@ -2,14 +2,17 @@
 
     python -m valida_tpu_torch.tooling.cli <run|prove|verify|interactive>
            <program> <action_file> [--stack-height N] [advice]
-           [--device cuda|cpu]
+           [--device cuda|cpu] [--jit]
 
 plus an `asm` subcommand exposing the assembler.
 
 Counterpart of valida_tpu/tooling/cli.py.  `--device` (default `cuda`)
 selects where `prove` runs and where `verify` re-commits the preprocessed
-traces; `cpu` runs the plain versions.  The program is interpreted by the
-Python step loop (`BasicMachine.run`), which streams the advice file.
+traces; `cpu` runs the plain versions.  `--jit` proves once through the
+staged prover (machine/jit_prover.py `prove_jit`, no separate warm-up):
+its graphs do not outlive the process, so a one-shot prove pays every
+stage's capture (PERF.md).  The program is interpreted by the Python step
+loop (`BasicMachine.run`), which streams the advice file.
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ def main(argv=None):
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="where to prove (and re-commit the "
                              "preprocessed traces when verifying)")
+    parser.add_argument("--jit", action="store_true",
+                        help="prove with the staged prover (each stage a "
+                             "captured CUDA graph on the card)")
     parser.add_argument("--hasher", choices=["keccak", "poseidon2"],
                         default="keccak", help="Merkle MMCS hasher")
     parser.add_argument("--log-final", type=int, default=0,
@@ -111,7 +117,12 @@ def main(argv=None):
 
     if args.action == "prove":
         machine.run(advice=_advice(args))
-        proof = machine.prove(config)
+        if args.jit:
+            from ..machine.jit_prover import prove_jit
+
+            proof = prove_jit(machine, config)
+        else:
+            proof = machine.prove(config)
         machine.verify(config, proof)
         with open(args.action_file, "wb") as f:
             f.write(serialize_proof(proof, config))
