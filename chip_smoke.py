@@ -22,6 +22,20 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    (a) `__graft_entry__.entry()`'s seed-0 [2^12, 32] trace,
    (b) the full-size commit, 2^19 x 128 (bench.py's shape),
    (c) 2^19 x 51, an odd width;
+   then (s): the streamed commit (`lde_commit_streamed`) of
+   benchmarks/sweep.py's input at 2^24 x 64, blowup 1, under Keccak and
+   under Poseidon2, with the same counters and recorded calls, each timed
+   (best of 3) with its device memory peak; the Keccak root and every level
+   held to the monolithic commit's (`coset_lde`, `merkle_levels`) in the
+   same call, whose time and peak print beside; a tiled run (col_tile 16,
+   row_tile 2^20) at 2^22 x 64 held to the untiled one; the roots at 2^16 x
+   64 held to the JAX package's;
+   then (p): the distributed primitives of valida_tpu_torch.parallel on a
+   one-rank NCCL group (`make_mesh(1)`): `dist_dif` forward and inverse at
+   2^20 x 51 and 2^19 x 128, `dist_coset_lde` at 2^20 x 51,
+   `sharded_prove_fn` at B = 2, N = 2^19, C = 51, K = 8 and
+   `dryrun_multichip(1)`, counted and recorded, each held to the
+   single-card functions' words, then timed beside them;
    then three PCS proofs through `TwoAdicFriPcs` (commit two rounds, open
    at extension points, verify on the host, reject a tampered proof), with
    the same counters, recorded calls and pinned digests of the JAX
@@ -166,6 +180,35 @@ PATHS = {
     "b": ((19, 128), ("ntt_dif_whole", "keccak256")),
     "c": ((19, 51), ("ntt_dif_ragged", "keccak256")),
 }
+
+# path (s): the streamed commit (valida_tpu_torch/commit/streamed.py) of
+# benchmarks/sweep.py's input at the sweep's largest size, blowup 1, under
+# each hasher, and the kernels each must and must not launch; the size,
+# col_tile and row_tile of the tiled run; and the roots at 2^16 x 64 as the
+# JAX package's numpy monolithic tree makes them (tests/
+# test_torch_streamed.py::reference_streamed_root)
+STREAMED_SHAPE = (24, 64)
+STREAMED_TILED = ((22, 64), 16, 1 << 20)
+STREAMED_PATHS = {
+    "s keccak": ("keccak", ("ntt_dif_ragged", "keccak256"),
+                 ("ntt_dif_whole", "poseidon2")),
+    "s poseidon2": ("poseidon2", ("ntt_dif_ragged", "poseidon2"),
+                    ("ntt_dif_whole", "keccak256")),
+}
+STREAMED_GOLDEN = {
+    "keccak":
+        "6a0313650df25ac0378aec8adec1d89bce29c976489508c74b8e2772f26c6aaa",
+    "poseidon2":
+        "3812582230eeb73bbd437a3024a75f057bb37d6fddf13e5664dc1658d2fd421b",
+}
+# path (p): the distributed primitives (valida_tpu_torch/parallel) on a
+# one-rank NCCL group: dist_dif at these (log_n, cols), dist_coset_lde at
+# the first, sharded_prove_fn at (B, log_n, C, K), then the dry run; the
+# kernels the path must and must not launch
+DIST_DIF_SHAPES = [(20, 51), (19, 128)]
+DIST_PROVE_SHAPE = (2, 19, 51, 8)
+DIST_KERNELS = (("ntt_dif_whole", "ntt_dif_ragged", "keccak256"),
+                ("poseidon2",))
 
 # the PCS proofs of the main path: (log_n, cols) of the three committed
 # matrices (round 1 commits the first two, round 2 the third), the Merkle
@@ -453,6 +496,226 @@ def trace(log_n, cols):
     return t
 
 
+def sweep_input(log_n, cols, device):
+    """benchmarks/sweep.py's LDE input, made on `device`: Montgomery int32
+    [2^log_n, cols] of x = i·747796405 + 2891336453 mod 2^32, x ^= x >> 16,
+    mod p, for i the row-major word index.  Made in slices of 2^22 words,
+    so that the int64 temporaries stay small."""
+    import torch
+
+    n_words = (1 << log_n) * cols
+    out = torch.empty(n_words, dtype=torch.int32, device=device)
+    step = 1 << 22
+    for w0 in range(0, n_words, step):
+        i = torch.arange(w0, min(w0 + step, n_words), dtype=torch.int64,
+                         device=device)
+        x = (i * 747796405 + 2891336453) & 0xFFFFFFFF
+        x ^= x >> 16
+        out[w0:w0 + step] = (x % P * ((1 << 32) % P) % P).to(torch.int32)
+    return out.view(1 << log_n, cols)
+
+
+def streamed_path(dev, run_recorded, wall_ms) -> dict:
+    """Path (s): the streamed commit of benchmarks/sweep.py's input at
+    STREAMED_SHAPE, blowup 1.  Each hasher's commit is counted and recorded
+    by `run_recorded`, then timed (best of 3) and its device memory peak
+    taken; the Keccak tree's root and every level are held to the
+    monolithic commit's (coset_lde, then merkle_levels) in this call, whose
+    time and peak print beside; then a tiled run at STREAMED_TILED against
+    the untiled one, and the roots at 2^16 x 64 against STREAMED_GOLDEN.
+    Returns each hasher's launch counts by path name."""
+    import torch
+    from valida_tpu_torch.commit.streamed import lde_commit_streamed
+    from valida_tpu_torch.convert import to_numpy
+    from valida_tpu_torch.crypto import merkle
+    from valida_tpu_torch.field import babybear as bb
+    from valida_tpu_torch.poly import ntt
+
+    launches = {}
+
+    def peak_gib(fn):
+        """fn()'s device memory peak over what was held before it, GiB."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**30, \
+            base / 2**30
+
+    def monolithic(x, hasher):
+        rows = bb.from_monty(ntt.coset_lde(x, 1, bb.GENERATOR,
+                                           out_bitrev=True))
+        root, levels = merkle.merkle_levels([rows], hasher)
+        return to_numpy(root), levels
+
+    log_n, cols = STREAMED_SHAPE
+    x = sweep_input(log_n, cols, dev)
+    streamed = {}
+    for path, (hasher, needed, forbidden) in STREAMED_PATHS.items():
+        what = f"streamed ({path}) 2^{log_n} x {cols}, blowup 1"
+        (root, levels), launches[path] = run_recorded(
+            what, needed, forbidden,
+            lambda: lde_commit_streamed(x, 1, bb.GENERATOR, hasher))
+        del levels
+        times = wall_ms(lambda: lde_commit_streamed(x, 1, bb.GENERATOR,
+                                                    hasher), 3)
+        again, peak, base = peak_gib(
+            lambda: lde_commit_streamed(x, 1, bb.GENERATOR, hasher)[0])
+        if not np.array_equal(again, root):
+            raise RuntimeError(f"{what}: two commits gave two roots")
+        streamed[hasher] = dict(ms=min(times), peak_gib=peak)
+        log(f"{what}: root {words_hex(root)}; wall-clock {min(times):.3f} "
+            f"ms (best of 3; all {' '.join(f'{t:.3f}' for t in times)}); "
+            f"device memory peak {peak:.3f} GiB above the {base:.3f} GiB "
+            f"held before it (the input {x.numel() * 4 / 2**30:.3f} GiB)")
+    what = f"streamed (s keccak) 2^{log_n} x {cols}"
+    (mono_root, mono_levels), mono_peak, base = peak_gib(
+        lambda: monolithic(x, "keccak"))
+    times = wall_ms(lambda: monolithic(x, "keccak"), 1)
+    root, levels = lde_commit_streamed(x, 1, bb.GENERATOR, "keccak")
+    if not np.array_equal(root, mono_root) or sorted(levels) != sorted(
+            mono_levels) or not all(torch.equal(levels[k], mono_levels[k])
+                                    for k in levels):
+        raise RuntimeError(f"{what}: the root or a level differs from the "
+                           f"monolithic commit's")
+    log(f"{what}: root and all {len(levels)} levels == the monolithic "
+        f"commit's; monolithic wall-clock {times[0]:.3f} ms (one warm "
+        f"run) against {streamed['keccak']['ms']:.3f}, device memory peak "
+        f"{mono_peak:.3f} GiB above the {base:.3f} GiB held before it, "
+        f"against the streamed {streamed['keccak']['peak_gib']:.3f} GiB")
+    del x, levels, mono_levels
+    (log_n, cols), col_tile, row_tile = STREAMED_TILED
+    x = sweep_input(log_n, cols, dev)
+    root, levels = lde_commit_streamed(x, 1, bb.GENERATOR, "keccak")
+    tiled_root, tiled = lde_commit_streamed(x, 1, bb.GENERATOR, "keccak",
+                                            col_tile=col_tile,
+                                            row_tile=row_tile)
+    if not np.array_equal(root, tiled_root) or not all(
+            torch.equal(levels[k], tiled[k]) for k in levels):
+        raise RuntimeError(f"streamed 2^{log_n} x {cols}: col_tile "
+                           f"{col_tile}, row_tile {row_tile} differ from "
+                           f"the untiled commit")
+    log(f"streamed 2^{log_n} x {cols}, col_tile {col_tile}, row_tile "
+        f"{row_tile}: root and levels == the untiled commit's")
+    del x, levels, tiled
+    x = sweep_input(16, 64, dev)
+    for hasher, want in STREAMED_GOLDEN.items():
+        got = words_hex(lde_commit_streamed(x, 1, bb.GENERATOR, hasher)[0])
+        if got != want:
+            raise RuntimeError(f"streamed 2^16 x 64 {hasher}: root {got}, "
+                               f"the JAX package's {want}")
+    log(f"streamed 2^16 x 64: keccak and poseidon2 roots == JAX package's")
+    del x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dist_path(dev, run_recorded, cuda_ms, rand_field) -> dict:
+    """Path (p): the distributed primitives of valida_tpu_torch.parallel on
+    a one-rank NCCL process group on this card (the machine has one):
+    dist_dif forward and inverse at DIST_DIF_SHAPES, dist_coset_lde at the
+    first of them, sharded_prove_fn at DIST_PROVE_SHAPE and the dry run,
+    counted and recorded by `run_recorded`; each result held to the
+    single-card function's on the same inputs (computed before, outside the
+    counted run: ntt.dif, ntt.coset_lde, commit_forward per trace and one
+    cumulative sum mod p), then dist_dif and dist_coset_lde timed beside
+    them.  Returns the path's launch counts."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+    from valida_tpu_torch.commit.lde_commit import commit_forward
+    from valida_tpu_torch.field import babybear as bb
+    from valida_tpu_torch.parallel import dist_ntt, mesh as pmesh
+    from valida_tpu_torch.parallel.dryrun import dryrun_multichip
+    from valida_tpu_torch.poly import ntt
+
+    def composed(traces, q, counts):
+        """(roots, φ's last row) on one card, without the mesh."""
+        roots = torch.stack([commit_forward(t, device=dev) for t in traces])
+        terms = (q.long() * counts.long()[..., None] % P
+                 * pow(1 << 32, P - 2, P) % P)
+        phi = terms.sum(dim=2).cumsum(dim=1) % P
+        return roots, phi[:, -1].to(torch.int32)
+
+    xs = {shape: rand_field((1 << shape[0], shape[1]))
+          for shape in DIST_DIF_SHAPES}
+    want = {(shape, inv): ntt.dif(x, inv)
+            for shape, x in xs.items() for inv in (False, True)}
+    lde_in = xs[DIST_DIF_SHAPES[0]]
+    want["lde"] = ntt.coset_lde(lde_in, 1, bb.GENERATOR, out_bitrev=True)
+    b, log_n, c, k = DIST_PROVE_SHAPE
+    prove_in = (rand_field((b, 1 << log_n, c)),
+                rand_field((b, 1 << log_n, k, 5)),
+                torch.randint(0, 3, (b, 1 << log_n, k), dtype=torch.int32,
+                              device=dev))
+    want["prove"] = composed(*prove_in)
+    rng = np.random.default_rng(0)  # the dry run's inputs at one rank
+    want["dryrun"] = composed(*(
+        torch.from_numpy(a.view(np.int32)).to(dev) for a in (
+            rng.integers(0, P, size=(1, 64, 8), dtype=np.uint32),
+            rng.integers(0, P, size=(1, 64, 2, 5), dtype=np.uint32),
+            rng.integers(0, 2, size=(1, 64, 2), dtype=np.uint32))))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300),
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = pmesh.make_mesh(1)
+
+            def run():
+                out = {key: dist_ntt.dist_dif(xs[key[0]], mesh, "sp", key[1])
+                       for key in want if isinstance(key, tuple)}
+                out["lde"] = dist_ntt.dist_coset_lde(lde_in, mesh, 1,
+                                                     bb.GENERATOR)
+                out["prove"] = pmesh.sharded_prove_fn(mesh)(*prove_in)
+                out["dryrun"] = tuple(
+                    torch.from_numpy(a.view(np.int32)).to(dev)
+                    for a in dryrun_multichip(1, "cuda"))
+                return out
+
+            what = "distributed (p), one NCCL rank"
+            got, counts = run_recorded(what, *DIST_KERNELS, run)
+            for key, w in want.items():
+                pairs = zip(got[key], w) if key in ("prove", "dryrun") else [
+                    (got[key], w)]
+                if not all(torch.equal(g, e) for g, e in pairs):
+                    raise RuntimeError(f"{what}: {key} differs from the "
+                                       f"single-card result")
+            log(f"{what}: dist_dif (forward and inverse at "
+                + ", ".join(f"2^{n} x {cols}" for n, cols in DIST_DIF_SHAPES)
+                + f"), dist_coset_lde, sharded_prove_fn at B={b}, N=2^{log_n}"
+                f", C={c}, K={k} and dryrun_multichip(1) == the single-card "
+                f"functions' words")
+            for (shape, inv) in [key for key in want if isinstance(key,
+                                                                   tuple)]:
+                x = xs[shape]
+                t_dist = cuda_ms(
+                    lambda: dist_ntt.dist_dif(x, mesh, "sp", inv), 10)
+                t_dif = cuda_ms(lambda: ntt.dif(x, inv), 10)
+                log(f"{what}: dist_dif 2^{shape[0]} x {shape[1]} "
+                    f"{'inverse' if inv else 'forward'} {t_dist:.4f} ms, "
+                    f"ntt.dif {t_dif:.4f} ms ({t_dist / t_dif:.2f}x)")
+            t_dist = cuda_ms(lambda: dist_ntt.dist_coset_lde(
+                lde_in, mesh, 1, bb.GENERATOR), 10)
+            t_lde = cuda_ms(lambda: ntt.coset_lde(lde_in, 1, bb.GENERATOR,
+                                                  out_bitrev=True), 10)
+            log(f"{what}: dist_coset_lde 2^{DIST_DIF_SHAPES[0][0]} x "
+                f"{DIST_DIF_SHAPES[0][1]} blowup 1 {t_dist:.4f} ms, "
+                f"ntt.coset_lde {t_lde:.4f} ms ({t_dist / t_lde:.2f}x)")
+        finally:
+            tdist.destroy_process_group()
+    log("distributed (p): more than one rank is held only by the CPU tests "
+        "on gloo (tests/test_torch_dist.py, 2, 4 and 8 ranks); a timing "
+        "across cards waits for a machine with four")
+    return counts
+
+
 def run_cli(log) -> dict:
     """Path (cli): `python -m valida_tpu_torch.tooling.cli` asm, run,
     prove and verify of CLI_PROGRAM with CLI_ADVICE, each action in a
@@ -539,14 +802,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from valida_tpu_torch import _build, utils
     from valida_tpu_torch.commit.fri import FriConfig, FriError
     from valida_tpu_torch.commit.lde_commit import commit_forward
     from valida_tpu_torch.commit.pcs import TwoAdicFriPcs
     from valida_tpu_torch.convert import table, to_int32_bits, to_numpy
-    from valida_tpu_torch.crypto import keccak
+    from valida_tpu_torch.crypto import keccak, merkle
     from valida_tpu_torch.crypto import poseidon2 as p2
+    from valida_tpu_torch.field import babybear as bb
     from valida_tpu_torch.core.config import default_config
     from valida_tpu_torch.crypto.challenger import DuplexChallenger
     from valida_tpu_torch.chips.alu import _ops_to_arrays
@@ -590,6 +855,16 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
+
+    def wall_ms(fn, runs):
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
 
     # 1. the card
     smi = subprocess.run(
@@ -728,10 +1003,10 @@ def main() -> int:
     # the C entries' arguments after (input, output), to the plain version
     plain_of = {
         "ntt_dif_whole": lambda x, pw, log_n, rest_n, t_max:
-            radix_ntt.dif_passes_plain(x, log_n, pw.equal(table(
+            passes_plain(x, log_n, pw.equal(table(
                 ntt._root_powers, log_n, True, device=dev)), t_max),
         "ntt_dif_ragged": lambda x, pw, log_n, rest_n, t_max:
-            radix_ntt.dif_passes_plain(x, log_n, pw.equal(table(
+            passes_plain(x, log_n, pw.equal(table(
                 ntt._root_powers, log_n, True, device=dev)), t_max),
         "keccak256": lambda w, batch, n_words:
             keccak.keccak256_words_plain(w),
@@ -825,6 +1100,17 @@ def main() -> int:
             raise RuntimeError(f"commit ({path}) root is {got}, the JAX "
                                f"package's is {GOLDEN[shape]}")
         log(f"{what}: root {got} == JAX package's")
+
+    t0 = time.perf_counter()
+    launches.update(streamed_path(dev, run_recorded, wall_ms))
+    log(f"path (s) took {time.perf_counter() - t0:.1f} s")
+
+    # path (p): the distributed primitives on a one-rank NCCL group, each
+    # result held to the single-card function's on the same inputs (made
+    # first, outside the counted run), then timed beside it
+    t0 = time.perf_counter()
+    launches["p"] = dist_path(dev, run_recorded, cuda_ms, rand_field)
+    log(f"path (p) took {time.perf_counter() - t0:.1f} s")
 
     # the PCS proofs: commit two rounds, open, verify on the host, reject a
     # tampered proof, compare with the JAX package's digests
@@ -1316,16 +1602,6 @@ def main() -> int:
                     lambda: commit_forward(traces[shape], device="cuda"))
 
     # path (d): commit_batches of both rounds and open_multi_batches, warm
-    def wall_ms(fn, runs):
-        times = []
-        for _ in range(runs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return times
-
     pcs, mats, points = (pcs_state[k] for k in ("pcs", "mats", "points"))
 
     def commit_d():
@@ -1497,6 +1773,7 @@ def main() -> int:
                                       for p, n in launches.items()}
         entry["launches"] = sum(entry["launches_per_path"].values())
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to the results")
     # 6. results
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -742,7 +742,8 @@ def _reject_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "prove_jit(mesh=...): the sharded multi-card prover is not "
-            "ported yet (ROADMAP A11)")
+            "ported yet (ROADMAP A11, part 2: each stage's collectives on "
+            "the primitives of valida_tpu_torch.parallel)")
 
 
 def _opening_layout(all_mats, log_blowup, fri_config):
