@@ -98,6 +98,15 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    proves, the memory peak with the graph pool, one prove by stage and one
    profiled, whose host launch calls print beside (k)'s and whose runs of
    our kernels on the device, and launches counted, must equal (k)'s;
+   then, on a one-rank NCCL process group (`make_mesh(1)`), the
+   distributed staged prover: (jm) (j)'s machine and config by
+   `warmup_jit(mesh=)` (its stage calls == `warmup_jit(mesh=, dry=True)`'s
+   count) and `prove_jit(mesh=)`: its bytes == (j)'s by SHA-256, its roots
+   == (h)'s pins, the verifier and the two tampers, no capture and no
+   eager collective in a warm prove, timed as (j) beside it, its warm
+   prove's kernel runs on the device and counted launches == its eager
+   first run's; (g'm) (g') by `prove_jit(mesh=)` twice, to (g')'s pin;
+   the graphs released before the group is destroyed;
 6. prints one JSON line of kernels, then the device line last.
 Any mismatch, build failure or launch error raises: the exit code is then
 non-zero and the last line is not printed.  With no GPU it exits 1.
@@ -293,6 +302,11 @@ F_ROOTS = [
 # core, run_native(build_lists=True / False)) and the kernels each must and
 # must not launch.  A path's pin is that of the first word of its name.
 BASIC_KERNELS = (("keccak256", "ntt_dif_ragged"), ("poseidon2",))
+# the distributed prover's paths (jm) and (g'm) on one rank: every LDE of
+# 128 rows or more runs dist_dif, whose two steps' widths are multiples of
+# 128 there (ntt_dif_whole)
+MESH_KERNELS = {"jm": (("keccak256", "ntt_dif_whole"), ("poseidon2",)),
+                "g'm": (("poseidon2", "ntt_dif_whole"), ("keccak256",))}
 BASIC_PATHS = {
     "n": ("fib", "run"),
     "h'": (13, "run"),
@@ -1013,6 +1027,9 @@ def main() -> int:
         "poseidon2": lambda w, batch, n_words: p2.hash_words_plain(w),
     }
     calls = []  # (kernel, input shape) of each call held against plain
+    # kernel runs on the device of the launches made outside a capture (an
+    # NTT call runs one a pass), reset by run_recorded
+    device_runs = dict.fromkeys(SOURCES, 0)
     recording = [""]  # the path being recorded
     small_seen, passed_over = {}, {}
     launch = _build.launch
@@ -1029,6 +1046,8 @@ def main() -> int:
             launch(lib_name, fn, x, y, *rest)
             return
         name = fn.removesuffix("_launch")
+        device_runs[name] += (len(radix_ntt._pass_levels(rest[1], rest[3]))
+                              if name.startswith("ntt") else 1)
         if (sample_small[0] and name in ("poseidon2", "keccak256")
                 and x.shape[0] <= SMALL_HASH):
             seen = small_seen[name] = small_seen.get(name, 0) + 1
@@ -1055,6 +1074,8 @@ def main() -> int:
         sample_small[0] = sample
         torch.cuda.synchronize()
         _build.reset_launches()
+        for k in device_runs:
+            device_runs[k] = 0
         _build.launch = recording_launch
         try:
             out = fn()
@@ -1222,7 +1243,8 @@ def main() -> int:
             check_tampers(what, machine, cfg, proof)
             machine_state = dict(machine=machine, cfg=cfg, proof=proof)
 
-    def prove_jit_twice(label, path, machine, cfg, needed, forbidden, pin):
+    def prove_jit_twice(label, path, machine, cfg, needed, forbidden, pin,
+                        mesh=None):
         """A path of the staged prover: the first prove runs each stage
         eagerly once (its kernel calls recorded and held against plain),
         captures it and replays it; the second only replays.  Both proofs
@@ -1233,7 +1255,8 @@ def main() -> int:
             t0 = time.perf_counter()
             proof, launches[f"{label} {run}"] = run_recorded(
                 what, needed, forbidden,
-                lambda: jit_prover.prove_jit(machine, cfg), sample=True)
+                lambda: jit_prover.prove_jit(machine, cfg, mesh=mesh),
+                sample=True)
             t_prove = time.perf_counter() - t0
             new = jit_prover.stats["captures"] - captures
             digest = hashlib.sha256(serialize_proof(proof)).hexdigest()
@@ -1767,13 +1790,137 @@ def main() -> int:
     jit_prover.release_graphs()
     torch.cuda.empty_cache()
 
+    # paths (jm) and (g'm): the distributed staged prover on a one-rank
+    # NCCL process group (the machine has one card), every collective run
+    # on one rank; its graphs capture them with the kernels
+    import datetime
+    import gc
+    import tempfile
+
+    import torch.distributed as tdist
+    from valida_tpu_torch.parallel import dist_ntt, mesh as pmesh
+
+    want_sha = hashlib.sha256(want).hexdigest()
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300),
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = pmesh.make_mesh(1)
+            what = ("basic (jm) ALU loop 2^20 cycles by arrays, staged, "
+                    "one-rank NCCL mesh")
+            dry = jit_prover.warmup_jit(machine, cfg, dry=True, mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            captures = jit_prover.stats["captures"]
+            t0 = time.perf_counter()
+            n_calls, launches["jm warmup"] = run_recorded(
+                f"{what} warmup_jit", *MESH_KERNELS["jm"],
+                lambda: jit_prover.warmup_jit(machine, cfg, mesh=mesh),
+                sample=True)
+            t_warm = time.perf_counter() - t0
+            # the warm-up's eager first runs: their counted launches and
+            # kernel runs (its graphs' one replay each counted apart)
+            eager = {k: n - _build.GRAPH_LAUNCHES[k]
+                     for k, n in launches["jm warmup"].items()}
+            eager_runs = dict(device_runs)
+            if n_calls != dry:
+                raise RuntimeError(f"{what}: warmup_jit called {n_calls} "
+                                   f"stages, warmup_jit(dry=True) counts "
+                                   f"{dry}")
+            log(f"{what}: warmup_jit (kernel calls recorded) in {t_warm:.1f}"
+                f" s: {n_calls} stage calls == dry count, "
+                f"{jit_prover.stats['captures'] - captures} graphs captured;"
+                f" memory peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                f"allocated ({base / 2**30:.3f} GiB held before it), "
+                f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB "
+                f"reserved; eager first runs: launches {eager}, kernel runs "
+                f"{eager_runs}")
+            captures = jit_prover.stats["captures"]
+            coll = dict(dist_ntt.COLLECTIVES)
+            proof, launches["jm"] = run_recorded(
+                what, *MESH_KERNELS["jm"],
+                lambda: jit_prover.prove_jit(machine, cfg, mesh=mesh))
+            coll = {k: dist_ntt.COLLECTIVES[k] - n for k, n in coll.items()}
+            if jit_prover.stats["captures"] != captures or coll["eager"]:
+                raise RuntimeError(
+                    f"{what}: a warm prove captured "
+                    f"{jit_prover.stats['captures'] - captures} graphs and "
+                    f"issued {coll['eager']} eager collectives")
+            blob = serialize_proof(proof)
+            if hashlib.sha256(blob).hexdigest() != want_sha:
+                raise RuntimeError(f"{what}: sha256 differs from (j)'s "
+                                   f"{want_sha}")
+            roots = [words_hex(proof.commitments.preprocessed),
+                     words_hex(proof.commitments.main_trace)]
+            if roots != H_ROOTS:
+                raise RuntimeError(f"{what}: preprocessed and main roots "
+                                   f"{roots}, the JAX package's {H_ROOTS}")
+            machine.verify(cfg, proof)
+            log(f"{what}: no graph captured, sha256 == (j)'s {want_sha}, "
+                f"roots == JAX package's, verified on the host; collectives "
+                f"a warm prove: {coll['eager']} eager, {coll['replayed']} "
+                f"inside its graphs")
+            check_tampers(what, machine, cfg, proof)
+            del proof, blob
+            timed_jm = time_machine(
+                what, dict(machine=machine, cfg=cfg),
+                prove=lambda: jit_prover.prove_jit(machine, cfg, mesh=mesh))
+            if (timed_jm["launches"] != eager
+                    or timed_jm["kernel_runs"] != eager_runs
+                    or not all(timed_jm["kernel_runs"][k]
+                               for k in MESH_KERNELS["jm"][0])):
+                raise RuntimeError(
+                    f"{what}: a warm prove's kernel runs "
+                    f"{timed_jm['kernel_runs']} and launches "
+                    f"{timed_jm['launches']}, the eager first run's "
+                    f"{eager_runs} and {eager}")
+            log(f"{what}: our kernels' runs on the device in a warm prove "
+                f"equal its eager first run's {eager_runs}, and its counted "
+                f"launches {eager}")
+            log("(jm) beside (j), this call: " + "; ".join(
+                f"{key} {timed_jm[key]} against {timed_j[key]}"
+                for key in ("median_ms", "best_ms", "busy_ms", "idle",
+                            "device_ops", "launch_calls",
+                            "peak_allocated_gib", "peak_reserved_gib"))
+                + f"; warm-up {t_warm:.1f} s; collectives a warm prove "
+                  f"{coll['eager']} eager, {coll['replayed']} in graphs")
+            jit_prover.release_graphs()
+            torch.cuda.empty_cache()
+
+            # (g'm): (g') through prove_jit(mesh=): Poseidon2 trees
+            log_pairs, hasher, _needed, _forbidden = MACHINE_PATHS["g'"]
+            g_machine = examples.random_ragged_machine(1 << log_pairs,
+                                                       seed=7)
+            g_cfg = default_config(hasher=hasher)
+            proof = prove_jit_twice(
+                "g'm", f"machine (g'm) random_ragged_machine(2^{log_pairs}, "
+                f"seed=7) {hasher}, one-rank NCCL mesh", g_machine, g_cfg,
+                *MESH_KERNELS["g'm"], MACHINE_GOLDEN["g'"], mesh=mesh)
+            g_machine.verify(g_cfg, proof)
+            del proof
+        finally:
+            # a graph that holds a collective must go before its group
+            jit_prover.release_graphs()
+            gc.collect()
+            torch.cuda.synchronize()
+            tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log("distributed (jm), (g'm): more than one rank is held only by the "
+        "CPU tests on gloo (tests/test_torch_dist_prover.py, 2, 4 and 8 "
+        "ranks); a timing across cards waits for a machine with four")
+
     # the launches of every path, (j) included
     for entry in kernels:
         entry["launches_per_path"] = {p: n[entry["name"]]
                                       for p, n in launches.items()}
         entry["launches"] = sum(entry["launches_per_path"].values())
 
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to the results")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to the results "
+        f"on {smi.stdout.strip().splitlines()[0]}")
     # 6. results
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

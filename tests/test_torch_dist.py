@@ -1,6 +1,8 @@
 """The port's distributed primitives (valida_tpu_torch.parallel) on gloo
 ranks on the CPU, against the JAX package's numpy path: `dist_dif` and
-`dist_coset_lde` blocks against `ntt.dif` and `ntt.coset_lde`, the sharded
+`dist_coset_lde` blocks against `ntt.dif` and `ntt.coset_lde`,
+`dist_coeffs` and `dist_eval` against `ntt.coset_intt` and
+`ntt.coset_eval_from_coeffs`, the sharded
 commit roots against `keccak256_words` trees, φ's last row against a
 cumulative sum mod p, and the dry run.
 
@@ -24,6 +26,7 @@ P = pbb.P
 DIF_CASES = [(10, 4), (14, 3), (17, 5)]  # tests/test_dist_ntt.py's
 PROVE_MESHES = [(1, 2), (2, 2), (1, 4)]  # (dp, sp)
 PROVE_SHAPE = (2, 1 << 9, 5, 4)  # B, N, C, K: the LDE runs dist_coset_lde
+EVAL_SHIFTS = (pbb.GENERATOR, pbb.h_exp(pbb.GENERATOR, 4))  # dshift, shift
 RANK_TIMEOUT_S = 120
 
 
@@ -50,7 +53,7 @@ def _cases(world):
     for log_n, cols in DIF_CASES if world < 8 else DIF_CASES[:1]:
         cases += [("dif", log_n, cols, False), ("dif", log_n, cols, True)]
     if world < 8:
-        cases += [("lde",), ("phi",)]
+        cases += [("lde",), ("eval",), ("phi",)]
     cases += [("prove", dp, sp) for dp, sp in PROVE_MESHES
               if dp * sp == world]
     return cases
@@ -70,6 +73,11 @@ def _run_case(case, world, rank, mesh):
     if kind == "lde":
         x = pbb.to_monty(_block(_lde_input(), rank, world))
         return to_numpy(dist_ntt.dist_coset_lde(x, mesh, 1, pbb.GENERATOR))
+    if kind == "eval":  # coefficients of dshift·H_N's values, on shift·H_N
+        dshift, shift = EVAL_SHIFTS
+        x = pbb.to_monty(_block(_lde_input(), rank, world))
+        c = dist_ntt.dist_coeffs(x, mesh, "sp", dshift)
+        return to_numpy(c), to_numpy(dist_ntt.dist_eval(c, mesh, shift))
     if kind == "phi":  # this rank's row block of every trace's φ
         _traces, q, counts = _prove_inputs()
         n = q.shape[1] // world
@@ -163,6 +171,23 @@ def test_dist_coset_lde_matches_coset_lde(ranks, world):
     want = nttm.coset_lde(bb.to_monty(_lde_input()), 1, bb.GENERATOR,
                           out_bitrev=True)
     assert np.array_equal(_gathered(ranks(world), ("lde",)), want)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_dist_coeffs_and_eval_match_ntt(ranks, world):
+    """dist_coeffs' blocks are the coset inverse transform in bit-reversed
+    order; dist_eval's, the coset evaluation of those coefficients in
+    natural order."""
+    from valida_tpu.field import babybear as bb
+    from valida_tpu.poly import ntt as nttm
+
+    dshift, shift = EVAL_SHIFTS
+    coeffs = nttm.coset_intt(bb.to_monty(_lde_input()), dshift)
+    per_rank = ranks(world)
+    got_c = np.concatenate([r[("eval",)][0] for r in per_rank])
+    got_e = np.concatenate([r[("eval",)][1] for r in per_rank])
+    assert np.array_equal(got_c, coeffs[nttm.bitrev_indices(11)])
+    assert np.array_equal(got_e, nttm.coset_eval_from_coeffs(coeffs, shift))
 
 
 def reference_prove(traces, q, counts):

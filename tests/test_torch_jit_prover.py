@@ -19,6 +19,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from tests.test_torch_basic import reference_basic_digest
+from tests.test_torch_dist_prover import one_rank_mesh_prove
 from tests.test_torch_machine import FIXTURE, reference_machine_digest
 from valida_tpu_torch import convert
 from valida_tpu_torch.air.types import Interaction, VPCol
@@ -31,6 +32,7 @@ from valida_tpu_torch.field import babybear as bb
 from valida_tpu_torch.machine import examples
 from valida_tpu_torch.machine import jit_prover as jp
 from valida_tpu_torch.machine.machine import Machine
+from valida_tpu_torch.parallel.dryrun import run_ranks
 from valida_tpu_torch.tooling.cli import main as cli_main
 from valida_tpu_torch.tooling.serde import serialize_proof
 
@@ -258,9 +260,9 @@ def test_ladder_entry_k0_matches_runtime(jit_proofs, monkeypatch):
     seen = []
     stage = jp._ladder_challenge_stage
 
-    def spy(k0, param_set):
+    def spy(k0, param_set, *mesh_key):
         seen.append(k0)
-        return stage(k0, param_set)
+        return stage(k0, param_set, *mesh_key)
 
     monkeypatch.setattr(jp, "_ladder_challenge_stage", spy)
     m, cfg, blob, _keys = jit_proofs["fib"]
@@ -362,11 +364,30 @@ def test_prove_jit_needs_a_gpu_here():
         jp.warmup_jit(m, default_config())
 
 
-@pytest.mark.parametrize("entry", ["prove_jit", "warmup_jit"])
-def test_mesh_is_not_ported(entry):
-    m = examples.random_mini_machine(8, seed=1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        getattr(jp, entry)(m, _cpu_config(), mesh=object())
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """The fixture's machine proved on a one-rank gloo mesh, in a process
+    of its own (`one_rank_mesh_prove`)."""
+    return run_ranks(one_rank_mesh_prove, 1, "cpu", timeout_s=300)[0]
+
+
+@pytest.mark.parametrize("entry", ["prove_jit", "warmup_jit", "row_axis"])
+def test_one_rank_mesh(jit_proofs, one_rank_mesh, entry):
+    """prove_jit(mesh=) on one rank gives the single-device bytes;
+    warmup_jit(mesh=) counts (dry) and calls the stages of that prove, all
+    keyed by the mesh, so no single-device graph is replayed; a row axis
+    the mesh lacks raises."""
+    _m, _cfg, blob, single_keys = jit_proofs["mini (fixture)"]
+    mesh_blob, keys, plan, counts, errors = one_rank_mesh
+    if entry == "prove_jit":
+        assert mesh_blob == blob
+    elif entry == "warmup_jit":
+        assert plan == keys and counts == (len(keys), len(keys))
+        assert all(k[-1] == ("mesh", 1, "sp") for k in keys)
+        assert len(keys) > len(single_keys)  # the tree tops and gathers
+    else:
+        assert len(errors) == 2
+        assert all("no axis 'tp'" in e for e in errors)
 
 
 def test_cli_prove_jit_writes_the_same_proof(tmp_path):

@@ -74,34 +74,48 @@ def quotient_values(machine, chip, log_degree, log_quotient_degree,
     whole domain first)."""
     qd = log_quotient_degree
     stride = 1 << (log_blowup - qd)
-    next_step = 1 << qd
 
-    main = main_lde[::stride]
-    perm = perm_lde[::stride]
-    prep = prep_lde[::stride] if prep_lde is not None else None
-    dev = main.device
-    q_size = int(main.shape[0])
+    def local_next(lde):
+        if lde is None:
+            return None
+        a = lde[::stride]
+        return a, torch.roll(a, -(1 << qd), dims=0)
 
-    def roll(a):
-        return torch.roll(a, -next_step, dims=0) if a is not None else None
+    return quotient_rows(machine, chip, log_degree, qd, local_next(prep_lde),
+                         local_next(main_lde), local_next(perm_lde),
+                         cumulative_sum, perm_challenges, alpha, pcs_shift,
+                         chunk=chunk)
 
-    # the [Q] selector vectors, built on the device (the JAX package's
+
+def quotient_rows(machine, chip, log_degree, log_quotient_degree, prep,
+                  main, perm, cumulative_sum, perm_challenges, alpha,
+                  pcs_shift, row0=0, chunk=0):
+    """`quotient_values` on the rows [row0, row0 + R) of the quotient
+    domain (row0 a multiple of 2^qd): prep, main and perm are pairs (the
+    rows, each row's successor 2^qd rows on), Montgomery [R, w] tensors
+    (prep None for a chip without one).  Returns [R, 5] Montgomery."""
+    qd = log_quotient_degree
+    dev = main[0].device
+    q_size = int(main[0].shape[0])
+
+    # the [R] selector vectors, built on the device (the JAX package's
     # device branch; its host branch gives the same words)
     sub_last = bb.monty_scalar(bb.h_inv(bb.two_adic_generator(log_degree)))
-    xs = coset_points_device(log_degree + qd, pcs_shift, dev)
+    xs = coset_points_device(log_degree + qd, pcs_shift, dev, row0, q_size)
     z_period, zinv_period = table(_zerofier_periods, log_degree, qd,
                                   pcs_shift % bb.P, device=dev)
-    z_full = z_period.repeat(1 << log_degree)
-    zinv = zinv_period.repeat(1 << log_degree)
+    z_full = z_period.repeat(q_size >> qd)
+    zinv = zinv_period.repeat(q_size >> qd)
     first_v = bb.mul(z_full, bb.inv_batch(bb.sub(xs, bb.monty_scalar(1))))
     last_v = bb.mul(z_full, bb.inv_batch(bb.sub(xs, sub_last)))
     trans_v = bb.sub(xs, sub_last)
 
     challenges = [_ext_value(perm_challenges[i], dev) for i in range(3)]
     alpha_v = _ext_value(alpha, dev)
-    n_perm_ext = perm.shape[1] // 5
-    whole = dict(m_l=main, m_n=roll(main), p_l=prep, p_n=roll(prep),
-                 e_l=perm, e_n=roll(perm), tr=trans_v, fi=first_v,
+    n_perm_ext = perm[0].shape[1] // 5
+    prep = prep or (None, None)
+    whole = dict(m_l=main[0], m_n=main[1], p_l=prep[0], p_n=prep[1],
+                 e_l=perm[0], e_n=perm[1], tr=trans_v, fi=first_v,
                  la=last_v, zi=zinv)
 
     def eval_rows(o):
@@ -110,8 +124,8 @@ def quotient_values(machine, chip, log_degree, log_quotient_degree,
             machine,
             main_local=_base_cols(o["m_l"]),
             main_next=_base_cols(o["m_n"]),
-            prep_local=_base_cols(o["p_l"]) if prep is not None else [],
-            prep_next=_base_cols(o["p_n"]) if prep is not None else [],
+            prep_local=_base_cols(o["p_l"]) if prep[0] is not None else [],
+            prep_next=_base_cols(o["p_n"]) if prep[0] is not None else [],
             perm_local=_ext_cols(o["e_l"], n_perm_ext),
             perm_next=_ext_cols(o["e_n"], n_perm_ext),
             perm_challenges=challenges,

@@ -51,16 +51,46 @@ call anew, so it never replays a graph whose outputs might overlap its own
 graphs' scratch.  Every static output stays allocated until
 `release_graphs` drops them all.
 
+The mesh (`prove_jit(mesh=..., row_axis=...)`).  Every rank of the
+mesh's row axis runs the same prove on its shard (one process a device,
+torch.distributed), with the JAX package's layout rule (its `_shard_of`):
+an array whose rows the axis's D ranks divide is held as D contiguous row
+blocks, one a rank; any other array whole on every rank.  The JAX package
+lets GSPMD insert the collectives; here each mesh stage writes them out,
+inside the stage (on the card they are captured into its graph with the
+kernels, every rank capturing and replaying in the same order):
+  traces      built whole on every rank, each keeps its block
+  commit      `dist_coeffs` / `dist_extend` (all_to_alls) where
+              `dif_applies`, else the rows gathered and extended whole;
+              leaves and subtrees local, the block roots all_gathered and
+              the top log2(D) levels (with the shorter, replicated
+              matrices injected) built on every rank
+  perm        local LogUp terms; the running sum's offset from one
+              all_gather of the ranks' totals
+  quotient    one all_to_all brings each rank its block of the quotient
+              domain in natural order with a halo of 2^qd rows;
+              `decompose_and_flatten` by `dist_coeffs`, one move of the
+              chunks' coefficients and `dist_eval`; the chunk matrix is
+              committed as the single-device prove commits it
+  openings    local sums against bit-reversed powers of zeta, all_reduced
+  FRI         folds local (a layer of D rows is gathered first)
+  queries     the owner's rows and lower path, one masked all_reduce
+A sharded coefficient matrix is held in bit-reversed row order, block by
+block (the order the inverse `dist_dif` leaves it).  The challenger, the
+grind and the FRI ladder run alike on every rank, so every rank assembles
+the same proof, byte for byte the single-device one.  A mesh stage's key
+ends with ("mesh", D, row_axis), and it reads the live group from _MESH.
+
 Not ported from the JAX package: its persistent export cache and source
 fingerprint (`_stage_cache_dir`, `_source_fingerprint`) are JAX-only (a
 CUDA graph does not outlive its process); `_par_map`'s threads (capture is
-not thread-safe: stages run in order); the mesh-sharded path (`mesh=`,
-ROADMAP A11); the host-challenger FRI ladder (the device one is the
-default there); the jitted grind attempt and `_grind_entry_k`, its key;
-the environment variables that set the row tiles.  The row tiles are the
-module constants below, 0 on every path: on the card a tile multiplies a
-stage's kernel launches, and the one-shot stages fit the memory the eager
-prover already needs.
+not thread-safe: stages run in order); the host-challenger FRI ladder (the
+device one is the default there); the jitted grind attempt and
+`_grind_entry_k`, its key; the environment variables that set the row
+tiles.  The row tiles are the module constants below, 0 on every path: on
+the card a tile multiplies a stage's kernel launches, and the one-shot
+stages fit the memory the eager prover already needs.  A mesh prove does
+not tile the permutation traces or a sharded matrix's openings.
 """
 
 from __future__ import annotations
@@ -70,13 +100,14 @@ import itertools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import _build
 from ..air.check import check_constraints, check_cumulative_sums
 from ..air.lookup import (generate_permutation_trace, padded_prep,
                           perm_cols_and_terms, phi_column)
 from ..air.quotient import (decompose_and_flatten, get_log_quotient_degree,
-                            quotient_values)
+                            quotient_rows, quotient_values)
 from ..commit import fri as frim
 from ..commit.pcs import (BatchOpening, PcsProof, PcsQueryProof,
                           _alpha_combine, _coset_points_bitrev,
@@ -88,6 +119,9 @@ from ..crypto import poseidon
 from ..crypto.merkle import get_hasher, merkle_levels
 from ..field import babybear as bb
 from ..field import ext as extf
+from ..parallel.dist_ntt import (COLLECTIVES, axis_info, count_collective,
+                                 dif_applies, dist_coeffs, dist_eval,
+                                 dist_extend, move_rows)
 from ..poly import ntt as nttm
 from ..utils import stage
 
@@ -111,22 +145,27 @@ stats = {"captures": 0}  # graphs captured in this process
 
 
 class _Graph:
-    __slots__ = ("uid", "graph", "inputs", "outputs", "out_spec", "launches")
+    __slots__ = ("uid", "graph", "inputs", "outputs", "out_spec", "launches",
+                 "collectives")
 
-    def __init__(self, graph, inputs, outputs, out_spec, launches):
+    def __init__(self, graph, inputs, outputs, out_spec, launches,
+                 collectives):
         self.uid = next(_UIDS)
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.out_spec = out_spec
         self.launches = launches
+        self.collectives = collectives
 
     def replay(self):
-        """Replay the graph; count the kernel launches it holds."""
+        """Replay the graph; count the kernel launches and collectives it
+        holds."""
         self.graph.replay()
         for k, n in self.launches.items():
             _build.LAUNCHES[k] += n
             _build.GRAPH_LAUNCHES[k] += n
+        COLLECTIVES["replayed"] += self.collectives
 
 
 def _flatten(obj):
@@ -188,12 +227,14 @@ class Stage:
                           torch.cuda.Stream()])
         graph = torch.cuda.CUDAGraph()
         before = dict(_build.CAPTURED)
+        coll = COLLECTIVES["captured"]
         with torch.cuda.graph(graph, pool=_POOL[0], stream=_POOL[1]):
             out = self.fn(*_unflatten(inputs, spec))
         launches = {k: _build.CAPTURED[k] - n for k, n in before.items()}
         outputs, out_spec = _flatten(out)
         g = _Graph(graph, inputs, outputs, out_spec,
-                   {k: n for k, n in launches.items() if n})
+                   {k: n for k, n in launches.items() if n},
+                   COLLECTIVES["captured"] - coll)
         stats["captures"] += 1
         g.replay()
         want, _ = _flatten(eager)
@@ -229,6 +270,89 @@ def _shape(t) -> tuple:
     return tuple(int(x) for x in t.shape)
 
 
+def _keyed(key: tuple, mk) -> tuple:
+    """A stage key, with the mesh key of a mesh prove at its end."""
+    return key if mk is None else key + (mk,)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: layout and collectives (see the module docstring)
+# ---------------------------------------------------------------------------
+
+
+class _Mesh:
+    """The row axis of a mesh prove: D ranks, this rank's index r, the
+    axis's process group; key ("mesh", D, row_axis) ends its stage keys."""
+
+    def __init__(self, mesh, row_axis: str):
+        self.mesh, self.axis = mesh, row_axis
+        self.d, self.r, self.group = axis_info(mesh, row_axis)
+        self.key = ("mesh", self.d, row_axis)
+
+
+_MESH = [None]  # the _Mesh of the mesh prove under way
+
+
+def _sharded(h: int, mk) -> bool:
+    """Whether an array of h rows is row-sharded in a prove with mesh key
+    mk (the JAX package's `_shard_of`)."""
+    return mk is not None and h % mk[1] == 0
+
+
+def _row_start(h: int, mk) -> int:
+    """The first global row of this rank's block of an array of h rows (0
+    for a whole array)."""
+    return _MESH[0].r * (h // mk[1]) if _sharded(h, mk) else 0
+
+
+def _block_of(x: torch.Tensor, mk) -> torch.Tensor:
+    """This rank's row block of a whole array that the mesh shards; x
+    itself when it is not sharded, or at D = 1."""
+    h = int(x.shape[0])
+    if not _sharded(h, mk) or mk[1] == 1:
+        return x
+    b = h // mk[1]
+    return x[_row_start(h, mk):][:b].clone()
+
+
+def _host_block(a: np.ndarray, mk) -> np.ndarray:
+    """`_block_of` of a host array."""
+    h = int(a.shape[0])
+    if not _sharded(h, mk):
+        return a
+    b = h // mk[1]
+    return a[_row_start(h, mk):][:b]
+
+
+def _gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """[D·n, ...]: the [n, ...] blocks of every rank of the row axis, in
+    rank order (one all_gather)."""
+    m = _MESH[0]
+    parts = [torch.empty_like(x) for _ in range(m.d)]
+    count_collective()
+    dist.all_gather(parts, x.contiguous(), group=m.group)
+    return torch.cat(parts, dim=0)
+
+
+def _sum_ranks(x: torch.Tensor) -> torch.Tensor:
+    """The field sum over the row axis's ranks of x (words below p): one
+    int64 all_reduce, then mod p."""
+    s = x.to(torch.int64)
+    count_collective()
+    dist.all_reduce(s, group=_MESH[0].group)
+    return (s % bb.P).to(torch.int32)
+
+
+def _bitrev_int(x: int, bits: int) -> int:
+    return int(format(x, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_stage(shape, mk):
+    """A row-sharded array [h, ...] -> the whole array on every rank."""
+    return Stage(("gather", shape, mk), _gather_rows)
+
+
 # ---------------------------------------------------------------------------
 # device Merkle forest (mixed heights, like crypto/merkle.MerkleTree)
 # ---------------------------------------------------------------------------
@@ -236,13 +360,18 @@ def _shape(t) -> tuple:
 
 class DeviceTree:
     """A Merkle tree whose matrices and levels stay on the device, with a
-    batched query opening (one gather stage per tree)."""
+    batched query opening (one gather stage per tree).  In a mesh prove
+    (mesh key mk) a matrix of global height heights[i] that the ranks
+    divide is this rank's row block, and so is each level above log2(D);
+    the levels at and below it are whole on every rank."""
 
-    def __init__(self, mats, root, levels):
+    def __init__(self, mats, root, levels, heights=None, mk=None):
         self.mats = mats  # canonical [h, w] tensors
         self._root = root  # [8] tensor, fetched on first use (.root)
         self.levels = levels  # {k: [2^k, 8] digests}
         self.log_max = max(levels)
+        self.heights = heights or [int(m.shape[0]) for m in self.mats]
+        self.mk = mk
 
     @property
     def root(self) -> np.ndarray:
@@ -261,9 +390,11 @@ class DeviceTree:
             return ([m.index_select(0, idx * 0) for m in self.mats],
                     np.zeros((len(indices), 0, 8), dtype=np.uint32))
         levels = tuple(self.levels[k] for k in range(self.log_max, 0, -1))
-        fn = _open_batch_stage(tuple(_shape(m) for m in self.mats),
-                               tuple(_shape(a) for a in levels),
-                               self.log_max, len(indices))
+        fn = _open_batch_stage(
+            tuple((h, int(m.shape[1])) for h, m in zip(self.heights,
+                                                       self.mats)),
+            tuple((1 << k, 8) for k in range(self.log_max, 0, -1)),
+            self.log_max, len(indices), self.mk)
         rows, paths = fn(tuple(self.mats), levels, idx)
         return list(rows), paths
 
@@ -273,44 +404,75 @@ def _log2(h: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _open_batch_stage(mat_shapes, level_shapes, log_max, q):
-    """Batched Merkle query opening of one tree signature: the opened rows
-    of every matrix and the sibling paths, in one stage."""
+def _open_batch_stage(mat_shapes, level_shapes, log_max, q, mk=None):
+    """Batched Merkle query opening of one tree signature (global shapes):
+    the opened rows of every matrix and the sibling paths, in one stage.
+    In a mesh prove the rank that holds a query's leaf supplies its rows
+    of the sharded matrices and its siblings above log2(D), the others
+    zeros, and one int32 all_reduce (a sum with one term) gives every rank
+    all of them."""
+    logd = _log2(mk[1]) if mk is not None else 0
 
     def fn(mats, levels, idx):
-        rows = tuple(m.index_select(0, idx >> (log_max - _log2(m.shape[0])))
-                     for m in mats)
-        sibs, cur = [], idx
-        for level in levels:
-            sibs.append(level.index_select(0, cur ^ 1))
-            cur = cur >> 1
-        return rows, torch.stack(sibs, dim=1)
+        owned = []  # (list, index) of each sharded array's part
+        mine = ((idx >> (log_max - logd)) == _MESH[0].r
+                if mk is not None and log_max >= logd else None)
 
-    return Stage(("openbatch", mat_shapes, level_shapes, log_max, q), fn)
+        def take(a, gi, sharded, h, out):
+            """Rows gi of a (h rows); of a sharded one, the owner's."""
+            if sharded:
+                owned.append((out, len(out)))
+                out.append(a.index_select(
+                    0, (gi - _row_start(h, mk)).masked_fill(~mine, 0))
+                    .masked_fill(~mine[:, None], 0))
+            else:
+                out.append(a.index_select(0, gi))
+
+        rows, sibs, cur = [], [], idx
+        for m, (h, _w) in zip(mats, mat_shapes):
+            take(m, idx >> (log_max - _log2(h)), _sharded(h, mk), h, rows)
+        for level, (h, _w) in zip(levels, level_shapes):
+            # a level of D digests or fewer is whole on every rank
+            take(level, cur ^ 1, _sharded(h, mk) and h > 1 << logd, h, sibs)
+            cur = cur >> 1
+        if owned:
+            parts = [out[i] for out, i in owned]
+            flat = torch.cat([t.reshape(-1) for t in parts])
+            count_collective()  # int32 words, digests too: no mod p
+            dist.all_reduce(flat, group=_MESH[0].group)
+            off = 0
+            for (out, i), t in zip(owned, parts):
+                out[i] = flat[off:off + t.numel()].reshape(t.shape)
+                off += t.numel()
+        return tuple(rows), torch.stack(sibs, dim=1)
+
+    return Stage(_keyed(("openbatch", mat_shapes, level_shapes, log_max, q),
+                        mk), fn)
+
+
+def _cat_cols(mats) -> torch.Tensor:
+    return (torch.cat(list(mats), dim=1) if len(mats) > 1
+            else mats[0]).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
-def _leaf_hash_jit(shapes, hasher_name):
+def _leaf_hash_jit(shapes, hasher_name, mk=None):
     """Hash the row-wise concatenation of matrices of `shapes`."""
     h = get_hasher(hasher_name)
-
-    def fn(mats):
-        cat = torch.cat(mats, dim=1) if len(mats) > 1 else mats[0]
-        return h.hash_words(cat.contiguous())
-
-    return Stage(("hashcat", shapes, hasher_name), fn)
+    return Stage(_keyed(("hashcat", shapes, hasher_name), mk),
+                 lambda mats: h.hash_words(_cat_cols(mats)))
 
 
 @functools.lru_cache(maxsize=None)
-def _pair_hash_jit(n, hasher_name):
+def _pair_hash_jit(n, hasher_name, mk=None):
     """One Merkle compression level: [n, 8] -> [n/2, 8]."""
     h = get_hasher(hasher_name)
-    return Stage(("hashpair", n, hasher_name),
+    return Stage(_keyed(("hashpair", n, hasher_name), mk),
                  lambda d: h.hash_words(d.reshape(-1, 16)))
 
 
 @functools.lru_cache(maxsize=None)
-def _tree_stage(mat_shapes, hasher_name):
+def _tree_stage(mat_shapes, hasher_name, mk=None):
     """A whole Merkle forest (mixed heights, level injection) in one
     stage: matrices in, every digest level out (log_max .. 0)."""
 
@@ -318,7 +480,30 @@ def _tree_stage(mat_shapes, hasher_name):
         _root, levels = merkle_levels(list(mats), hasher_name)
         return tuple(levels[k] for k in sorted(levels, reverse=True))
 
-    return Stage(("tree", mat_shapes, hasher_name), fn)
+    return Stage(_keyed(("tree", mat_shapes, hasher_name), mk), fn)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_top_stage(d, rep_shapes, hasher_name, mk):
+    """The top log2(D) levels of a mesh tree: every rank's block root
+    [1, 8] all_gathered into level log2(D), then compressed to the root,
+    the whole matrices (heights below D, `rep_shapes`) injected at their
+    levels as `merkle_levels` injects them.  Levels log2(D) .. 0 out."""
+    h = get_hasher(hasher_name)
+    by_level = _by_level(rep_shapes)
+
+    def fn(block_root, rep):
+        cur = _gather_rows(block_root)
+        out = [cur]
+        for k in range(_log2(d) - 1, -1, -1):
+            cur = h.hash_words(cur.reshape(-1, 16))
+            if k in by_level:
+                inj = h.hash_words(_cat_cols([rep[i] for i in by_level[k]]))
+                cur = h.hash_words(torch.cat([cur, inj], dim=1))
+            out.append(cur)
+        return tuple(out)
+
+    return Stage(("treetop", d, rep_shapes, hasher_name, mk), fn)
 
 
 def _by_level(shapes) -> dict:
@@ -328,50 +513,81 @@ def _by_level(shapes) -> dict:
     return by_level
 
 
-def _tree_keys(shapes, hasher_name) -> list:
-    """The keys of the stages `_build_levels_jit` calls on matrices of
-    these shapes, in call order."""
+def _tree_keys(shapes, hasher_name, mk=None) -> list:
+    """The keys of the stages `_build_levels_jit` (`_build_levels_mesh`
+    with mk, shapes global) calls on matrices of these shapes, in call
+    order."""
+    if mk is not None:
+        d = mk[1]
+        local = [(h // d, w) for h, w in shapes if h % d == 0]
+        if local:
+            rep = tuple((h, w) for h, w in shapes if h % d)
+            return _forest_keys(local, hasher_name, mk) + [
+                _tree_top_stage(d, rep, hasher_name, mk).key]
+    return _forest_keys(shapes, hasher_name, mk)
+
+
+def _forest_keys(shapes, hasher_name, mk) -> list:
     by_level = _by_level(shapes)
     log_max = max(by_level)
     if (1 << log_max) <= TREE_FUSE_MAX:
-        return [_tree_stage(tuple(shapes), hasher_name).key]
+        return [_tree_stage(tuple(shapes), hasher_name, mk).key]
 
     def leaf(k):
         return _leaf_hash_jit(tuple(shapes[i] for i in by_level[k]),
-                              hasher_name).key
+                              hasher_name, mk).key
 
     keys = [leaf(log_max)]
     for k in range(log_max - 1, -1, -1):
-        keys.append(_pair_hash_jit(1 << (k + 1), hasher_name).key)
+        keys.append(_pair_hash_jit(1 << (k + 1), hasher_name, mk).key)
         if k in by_level:
             keys.append(leaf(k))
             keys.append(_leaf_hash_jit(((1 << k, 8), (1 << k, 8)),
-                                       hasher_name).key)
+                                       hasher_name, mk).key)
     return keys
 
 
-def _build_levels_jit(mats, hasher_name):
+def _build_levels_jit(mats, hasher_name, mk=None):
     """(root [8] tensor, {k: digests}): one fused stage for a small tree,
     a stage per level for a big one."""
     shapes = tuple(_shape(m) for m in mats)
     by_level = _by_level(shapes)
     log_max = max(by_level)
     if (1 << log_max) <= TREE_FUSE_MAX:
-        outs = _tree_stage(shapes, hasher_name)(tuple(mats))
+        outs = _tree_stage(shapes, hasher_name, mk)(tuple(mats))
         levels = {log_max - i: a for i, a in enumerate(outs)}
         return levels[0][0], levels
 
     def leaf(group):
         return _leaf_hash_jit(tuple(_shape(m) for m in group),
-                              hasher_name)(tuple(group))
+                              hasher_name, mk)(tuple(group))
 
     d = leaf([mats[i] for i in by_level[log_max]])
     levels = {log_max: d}
     for k in range(log_max - 1, -1, -1):
-        d = _pair_hash_jit(1 << (k + 1), hasher_name)(d)
+        d = _pair_hash_jit(1 << (k + 1), hasher_name, mk)(d)
         if k in by_level:
             d = leaf([d, leaf([mats[i] for i in by_level[k]])])
         levels[k] = d
+    return levels[0][0], levels
+
+
+def _build_levels_mesh(mats, shapes, hasher_name, mk):
+    """`_build_levels_jit` of a mesh prove (shapes global): the sharded
+    matrices' blocks are a subtree on each rank, built locally down to its
+    root; `_tree_top_stage` makes the top.  Levels above log2(D) are this
+    rank's blocks, the rest whole."""
+    d = mk[1]
+    local = [i for i, (h, _w) in enumerate(shapes) if h % d == 0]
+    if not local:
+        return _build_levels_jit(mats, hasher_name, mk)
+    _r, below = _build_levels_jit([mats[i] for i in local], hasher_name, mk)
+    rep = [i for i in range(len(mats)) if i not in local]
+    top = _tree_top_stage(d, tuple(shapes[i] for i in rep), hasher_name,
+                          mk)(below[0], tuple(mats[i] for i in rep))
+    logd = _log2(d)
+    levels = {k + logd: a for k, a in below.items() if k}
+    levels.update({logd - i: a for i, a in enumerate(top)})
     return levels[0][0], levels
 
 
@@ -380,22 +596,50 @@ def _build_levels_jit(mats, hasher_name):
 # ---------------------------------------------------------------------------
 
 
+def _lde(m, dshift, log_blowup, shift):
+    """Montgomery evaluations on dshift·H_h -> (coefficients, LDE in
+    bit-reversed row order, both Montgomery; the canonical LDE rows the
+    tree commits), as `TwoAdicFriPcs.commit_batches` makes them."""
+    coeffs = nttm.intt(m) if dshift == 1 else nttm.coset_intt(m, dshift)
+    pad = coeffs.new_zeros((((1 << log_blowup) - 1) * coeffs.shape[0],)
+                           + tuple(coeffs.shape[1:]))
+    lde_rev = nttm.coset_eval_from_coeffs(torch.cat([coeffs, pad]), shift,
+                                          out_bitrev=True)
+    return coeffs, lde_rev, bb.from_monty(lde_rev)
+
+
 @functools.lru_cache(maxsize=None)
 def _lde_stage(shape, dshift, log_blowup, shift):
-    """One trace matrix -> (coefficients, LDE in bit-reversed row order,
-    both Montgomery; the canonical LDE rows the tree commits), as
-    `TwoAdicFriPcs.commit_batches` makes them."""
+    """One trace matrix (canonical) -> `_lde`'s three outputs."""
+    return Stage(("lde", shape, dshift, log_blowup, shift),
+                 lambda mat: _lde(bb.to_monty(mat), dshift, log_blowup,
+                                  shift))
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_lde_stage(shape, dshift, log_blowup, shift, mk):
+    """`_lde_stage` of a mesh prove (shape global, mat in the mesh layout),
+    its outputs in the mesh layout: a sharded matrix's coefficients in
+    bit-reversed order, block by block.  `dist_coeffs` and `dist_extend`
+    where `dif_applies`; else the rows gathered, extended whole and
+    blocked again."""
+    h, log_h = shape[0], _log2(shape[0])
 
     def fn(mat):
-        m = bb.to_monty(mat)
-        coeffs = nttm.intt(m) if dshift == 1 else nttm.coset_intt(m, dshift)
-        pad = coeffs.new_zeros((((1 << log_blowup) - 1) * coeffs.shape[0],)
-                               + tuple(coeffs.shape[1:]))
-        lde_rev = nttm.coset_eval_from_coeffs(torch.cat([coeffs, pad]),
-                                              shift, out_bitrev=True)
-        return coeffs, lde_rev, bb.from_monty(lde_rev)
+        m, mesh = bb.to_monty(mat), _MESH[0]
+        if _sharded(h, mk) and dif_applies(log_h, mk[1]):
+            c = dist_coeffs(m, mesh.mesh, mesh.axis, dshift)
+            lde_rev = dist_extend(c, mesh.mesh, log_blowup, shift, mesh.axis)
+            return c, lde_rev, bb.from_monty(lde_rev)
+        if _sharded(h, mk):
+            c, lde_rev, canon = _lde(_gather_rows(m), dshift, log_blowup,
+                                     shift)
+            c = nttm._gather_bitrev(c, log_h)
+        else:
+            c, lde_rev, canon = _lde(m, dshift, log_blowup, shift)
+        return _block_of(c, mk), _block_of(lde_rev, mk), _block_of(canon, mk)
 
-    return Stage(("lde", shape, dshift, log_blowup, shift), fn)
+    return Stage(("lde", shape, dshift, log_blowup, shift, mk), fn)
 
 
 def _ext_powers_dyn(z, n: int):
@@ -424,11 +668,13 @@ def _points_for(zeta_m, kind):
 
 
 @functools.lru_cache(maxsize=None)
-def _openings_stage(shapes, kind, chunk):
+def _openings_stage(shapes, kind, chunk, mk=None):
     """Open all coefficient matrices of one (height, point kind) group at
     the kind's points: a [sum of widths, 5] Montgomery tensor per point.
     chunk > 0 sums row tiles (exact: partial modular sums)."""
     h = shapes[0][0]
+    if _sharded(h, mk):
+        return _mesh_openings_stage(shapes, kind, mk)
 
     def fn(mats, zeta_m):
         coeffs = torch.cat(mats, dim=1) if len(mats) > 1 else mats[0]
@@ -444,17 +690,45 @@ def _openings_stage(shapes, kind, chunk):
                 out.append(nttm.eval_at_ext_point(coeffs, zp))
         return tuple(out)
 
-    return Stage(("open", shapes, kind, chunk), fn)
+    return Stage(_keyed(("open", shapes, kind, chunk), mk), fn)
 
 
 @functools.lru_cache(maxsize=None)
-def _reduced_stage(shapes, kind, log_lde, col_offs, shift, chunk):
+def _mesh_openings_stage(shapes, kind, mk):
+    """`_openings_stage` of row-sharded coefficients.  Row j of rank r's
+    block holds coefficient i = bitrev(r·h/D + j) = bitrev'(j)·D + rev(r)
+    (bitrev' over log2(h/D) bits, rev over log2(D)), so the block's sum is
+    z^rev(r) · sum_j c_j (z^D)^bitrev'(j): the powers of z^D, gathered in
+    bit-reversed order; then the ranks' sums are added."""
+    d = mk[1]
+    hb = shapes[0][0] // d
+
+    def fn(mats, zeta_m):
+        coeffs = _cat_cols(mats)
+        rev = table(nttm.bitrev_indices, _log2(hb),
+                    device=coeffs.device).long()
+        rr = _bitrev_int(_MESH[0].r, _log2(d))
+        out = []
+        for z in _points_for(zeta_m, kind):
+            zp = _ext_powers_dyn(extf.ext_exp(z, d), hb).index_select(0, rev)
+            part = extf.ext_mul(nttm.eval_at_ext_point(coeffs, zp),
+                                extf.ext_exp(z, rr)[None, :])
+            out.append(_sum_ranks(part))
+        return tuple(out)
+
+    return Stage(("open", shapes, kind, mk), fn)
+
+
+@functools.lru_cache(maxsize=None)
+def _reduced_stage(shapes, kind, log_lde, col_offs, shift, chunk, mk=None):
     """Reduced-opening contribution of one (height, point kind) group:
     sum over its points z of (sum_c alpha^off(c) (p_c(x) - p_c(z))) /
     (x - z) on the bit-reversed LDE domain, [2^log_lde, 5] Montgomery.
     col_offs[c] is column c's alpha-power index in the global matrix
     order.  The same words as `open_multi_batches`' per-matrix sums
-    (field sums are exact).  chunk > 0 runs row tiles."""
+    (field sums are exact).  chunk > 0 runs row tiles.  In a mesh prove
+    the LDEs are this rank's blocks, against its rows of the points: every
+    row is its own."""
     widths = [w for _h, w in shapes]
     n_pows = max(col_offs) + 1
 
@@ -467,7 +741,10 @@ def _reduced_stage(shapes, kind, log_lde, col_offs, shift, chunk):
         points = _points_for(zeta_m, kind)
         comb_ys = [nttm._mod_sum(extf.ext_mul(apows, y), axis=0)
                    for y in vals]
-        xs = table(_coset_points_bitrev, log_lde, shift, device=dev)
+        q = int(ldes_rev[0].shape[0])
+        x0 = _row_start(1 << log_lde, mk)
+        xs = table(_coset_points_bitrev, log_lde, shift,
+                   device=dev)[x0:x0 + q]
 
         def rows_fn(r0, r1):
             combined = None
@@ -483,30 +760,33 @@ def _reduced_stage(shapes, kind, log_lde, col_offs, shift, chunk):
                 acc = quot if acc is None else bb.add(acc, quot)
             return acc
 
-        q = 1 << log_lde
         if chunk and q > chunk:
             return torch.cat([rows_fn(r, r + chunk)
                               for r in range(0, q, chunk)], dim=0)
         return rows_fn(0, q)
 
-    return Stage(("red", shapes, kind, log_lde, col_offs, shift, chunk), fn)
+    return Stage(_keyed(("red", shapes, kind, log_lde, col_offs, shift,
+                         chunk), mk), fn)
 
 
 @functools.lru_cache(maxsize=None)
-def _fri_pair_mat(log_m):
+def _fri_pair_mat(log_m, mk=None):
     """A FRI layer [2^log_m, 5] Montgomery -> its committed pair matrix
-    [2^(log_m-1), 10] canonical."""
-    return Stage(("fripair", log_m), frim._ext_to_base_matrix)
+    [2^(log_m-1), 10] canonical (a row block of each in a mesh prove)."""
+    return Stage(_keyed(("fripair", log_m), mk), frim._ext_to_base_matrix)
 
 
 @functools.lru_cache(maxsize=None)
-def _fri_fold(log_m, shift_layer, inject=False):
+def _fri_fold(log_m, shift_layer, inject=False, mk=None):
     """FRI arity-2 fold; with inject the next height's reduced opening is
-    added in the same stage."""
+    added in the same stage.  In a mesh prove a fold pairs adjacent rows
+    of the rank's block, against its rows of the 1/x0 table."""
+    half = 1 << (log_m - 1)
 
     def fold(current, beta_m):
+        x0 = _row_start(half, mk)
         x0inv = table(frim._x0_inv_table, log_m, shift_layer,
-                      device=current.device)
+                      device=current.device)[x0:x0 + current.shape[0] // 2]
         return frim.fold_device(current, beta_m, x0inv)
 
     if inject:
@@ -514,18 +794,18 @@ def _fri_fold(log_m, shift_layer, inject=False):
             return bb.add(fold(current, beta_m), inj)
     else:
         fn = fold
-    return Stage(("frifold", log_m, shift_layer, inject), fn)
+    return Stage(_keyed(("frifold", log_m, shift_layer, inject), mk), fn)
 
 
 @functools.lru_cache(maxsize=None)
-def _add_stage(shape):
+def _add_stage(shape, mk=None):
     """Elementwise modular add (reduced openings of groups sharing a
     height)."""
-    return Stage(("addmod", shape), bb.add)
+    return Stage(_keyed(("addmod", shape), mk), bb.add)
 
 
 @functools.lru_cache(maxsize=None)
-def _ladder_challenge_stage(k0, param_set):
+def _ladder_challenge_stage(k0, param_set, mk=None):
     """One FRI-ladder Fiat-Shamir round on the card: absorb an 8-word
     Merkle root into the duplex state as `DuplexChallenger.observe` does,
     then sample one ext challenge (5 words popped from the state's end).
@@ -560,7 +840,7 @@ def _ladder_challenge_stage(k0, param_set):
     else:
         def fn(state, root):
             return absorb_sample(state, words(root))
-    return Stage(("frichal", k0, param_set), fn)
+    return Stage(_keyed(("frichal", k0, param_set), mk), fn)
 
 
 class _BufSim:
@@ -612,9 +892,9 @@ def _ladder_entry_k0(all_mats, direct_set) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _stack_canon_stage(n):
+def _stack_canon_stage(n, mk=None):
     """Stack n [5] Montgomery cumulative sums, canonical (one fetch)."""
-    return Stage(("stackcanon", n),
+    return Stage(_keyed(("stackcanon", n), mk),
                  lambda vals: bb.from_monty(torch.stack(vals)))
 
 
@@ -623,29 +903,35 @@ _QUOTIENT_STAGE_CACHE: dict = {}
 _TRACE_STAGE_CACHE: dict = {}
 
 
-def _trace_stage(machine, chip, shapes, meta):
-    """The chip's main trace from its uploaded op arrays (chip.build_trace)."""
-    key = ("tracegen", type(machine).__name__, chip.name, shapes, meta)
+def _trace_stage(machine, chip, shapes, meta, mk=None):
+    """The chip's main trace from its uploaded op arrays (chip.build_trace);
+    in a mesh prove, built whole on every rank, each keeping its block."""
+    key = _keyed(("tracegen", type(machine).__name__, chip.name, shapes,
+                  meta), mk)
     fn = _TRACE_STAGE_CACHE.get(key)
     if fn is None:
         fn = _TRACE_STAGE_CACHE[key] = Stage(
-            key, lambda *inputs: chip.build_trace(inputs, meta))
+            key, lambda *inputs: _block_of(chip.build_trace(inputs, meta),
+                                           mk))
     return fn
 
 
-def _perm_stage(machine, chip, log_degree, width, prep_shape=None):
+def _perm_stage(machine, chip, log_degree, width, prep_shape=None, mk=None):
     """Main trace, challenges [3, 5] canonical (and the preprocessed trace,
     an input: a program's ROM is content, not shape) -> (the flat
     canonical permutation trace [n, (K+1)*5], the cumulative sum [5]
     Montgomery).  With PERM_CHUNK > 0, row tiles with phi's prefix sum
-    carried from tile to tile (the same words)."""
+    carried from tile to tile (the same words).  In a mesh prove that
+    shards the n rows: this rank's blocks in (the preprocessed trace
+    zero-padded to n rows) and out, phi's offset the sum of the lower
+    ranks' totals (one all_gather), the cumulative sum on every rank."""
     n = 1 << log_degree
     n_inter = len(chip.all_interactions(machine))
     chunk = PERM_CHUNK
-    if not (chunk and n > chunk and n_inter > 0):
+    if not (chunk and n > chunk and n_inter > 0) or mk is not None:
         chunk = 0
-    key = ("perm", type(machine).__name__, chip.name, log_degree, width,
-           prep_shape, chunk)
+    key = _keyed(("perm", type(machine).__name__, chip.name, log_degree,
+                  width, prep_shape, chunk), mk)
     fn = _PERM_STAGE_CACHE.get(key)
     if fn is not None:
         return fn
@@ -671,7 +957,22 @@ def _perm_stage(machine, chip, log_degree, width, prep_shape=None):
             flats.append(bb.from_monty(t).reshape(chunk, -1))
         return torch.cat(flats, dim=0), carry.clone()
 
-    impl = perm_chunked if chunk else perm_full
+    def perm_mesh(main_trace, ch_arr, prep):
+        rows = int(main_trace.shape[0])
+        cols, terms = perm_cols_and_terms(
+            machine, chip, bb.to_monty(main_trace),
+            bb.to_monty(prep) if prep is not None else None, ch_arr)
+        if not cols:
+            return (main_trace.new_zeros((rows, 5)),
+                    main_trace.new_zeros((5,)))
+        totals = _gather_rows(nttm._mod_sum(terms, axis=0)[None, :])
+        phi = phi_column(terms, nttm._mod_sum(totals[:_MESH[0].r], axis=0))
+        t = torch.stack(cols + [phi], dim=1)
+        return (bb.from_monty(t).reshape(rows, -1),
+                nttm._mod_sum(totals, axis=0))
+
+    impl = (perm_mesh if _sharded(n, mk) else
+            perm_chunked if chunk else perm_full)
     if prep_shape is None:
         def stage_fn(main_trace, ch_arr):
             return impl(main_trace, ch_arr, None)
@@ -683,13 +984,14 @@ def _perm_stage(machine, chip, log_degree, width, prep_shape=None):
 
 
 def _quotient_stage(machine, chip, log_degree, qd, shapes, shift,
-                    log_blowup):
+                    log_blowup, mk=None):
     """Bit-reversed LDEs (preprocessed or None, main, permutation),
     challenges [3, 5], alpha [5] and the cumulative sum [5], canonical ->
-    the quotient chunk matrix [n, 2^qd * 5] canonical."""
+    the quotient chunk matrix [n, 2^qd * 5] canonical (in a mesh prove, LDEs
+    and chunk matrix in the mesh layout)."""
     chunk = QUOTIENT_CHUNK
-    key = ("quot", type(machine).__name__, chip.name, log_degree, qd, shapes,
-           shift, log_blowup, chunk)
+    key = _keyed(("quot", type(machine).__name__, chip.name, log_degree, qd,
+                  shapes, shift, log_blowup, chunk), mk)
     fn = _QUOTIENT_STAGE_CACHE.get(key)
     if fn is not None:
         return fn
@@ -706,8 +1008,65 @@ def _quotient_stage(machine, chip, log_degree, qd, shapes, shift,
                              chunk=chunk)
         return decompose_and_flatten(qv, shift, qd)
 
-    fn = _QUOTIENT_STAGE_CACHE[key] = Stage(key, stage_fn)
+    def stage_whole(*args):
+        """A mesh prove's chip of fewer rows than D (its LDEs may still be
+        sharded: they are gathered)."""
+        shapes_ppm = (shapes[2], shapes[0], shapes[1])  # prep, main, perm
+        ldes = [a if a is None or not _sharded(s[0], mk) else _gather_rows(a)
+                for a, s in zip(args[:3], shapes_ppm)]
+        return stage_fn(*ldes, *args[3:])
+
+    log_q = log_degree + qd
+
+    def stage_mesh(prep_lde, main_lde, perm_lde, ch_arr, alpha_arr, cum):
+        m = _MESH[0]
+        qb = (1 << log_q) // m.d
+
+        def rows(lde):  # this rank's block of the domain, and its halo
+            if lde is None:
+                return None
+            x = move_rows(lde, m.mesh, m.axis, _quotient_wanted, (log_q, qd))
+            return x[:qb], x[1 << qd:(1 << qd) + qb]
+
+        qv = quotient_rows(machine, chip, log_degree, qd, rows(prep_lde),
+                           rows(main_lde), rows(perm_lde), cum, ch_arr,
+                           alpha_arr, shift, m.r * qb, chunk)
+        if not dif_applies(log_degree, m.d):
+            return _block_of(decompose_and_flatten(_gather_rows(qv), shift,
+                                                   qd), mk)
+        # decompose_and_flatten on the mesh: the coefficients, each rank's
+        # block of the chunks' (one move), evaluated on shift^(2^qd)·H_N
+        c = dist_coeffs(qv, m.mesh, m.axis, shift)
+        c = move_rows(c, m.mesh, m.axis, _chunk_wanted,
+                      (log_degree, qd)).reshape(-1, (1 << qd) * 5)
+        return bb.from_monty(dist_eval(c, m.mesh, bb.h_exp(shift, 1 << qd),
+                                       m.axis))
+
+    impl = (stage_fn if mk is None else
+            stage_mesh if _sharded(1 << log_degree, mk) else stage_whole)
+    fn = _QUOTIENT_STAGE_CACHE[key] = Stage(key, impl)
     return fn
+
+
+def _quotient_wanted(d: int, q: int, log_q: int, qd: int) -> np.ndarray:
+    """The bit-reversed LDE's rows that rank q evaluates the quotient on:
+    the quotient domain's points k (natural order, its block and a halo of
+    2^qd rows, wrapping round) are the LDE's rows bitrev_Q(k), Q =
+    2^log_q, the first Q rows of the bit-reversed LDE."""
+    qb = (1 << log_q) // d
+    k = np.arange(q * qb, (q + 1) * qb + (1 << qd)) % (1 << log_q)
+    return nttm.bitrev_indices(log_q)[k]
+
+
+def _chunk_wanted(d: int, q: int, log_n: int, qd: int) -> np.ndarray:
+    """The rows of the quotient's coefficients (bit-reversed over Q = N ·
+    2^qd) that make rank q's block of the chunk coefficients, bit-reversed
+    over N: row j' of that matrix holds, at column block c, the row c·N +
+    j' of the Q-point array (coefficient bitrev_N(j')·2^qd + bitrev(c),
+    of chunk bitrev(c), as `decompose_and_flatten` orders the chunks)."""
+    nb = (1 << log_n) // d
+    j = np.arange(q * nb, (q + 1) * nb)
+    return ((np.arange(1 << qd) << log_n)[None, :] + j[:, None]).ravel()
 
 
 def _from_monty_host(a: np.ndarray) -> np.ndarray:
@@ -738,14 +1097,6 @@ def _fetch_all(arrs) -> list:
 # ---------------------------------------------------------------------------
 
 
-def _reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "prove_jit(mesh=...): the sharded multi-card prover is not "
-            "ported yet (ROADMAP A11, part 2: each stage's collectives on "
-            "the primitives of valida_tpu_torch.parallel)")
-
-
 def _opening_layout(all_mats, log_blowup, fri_config):
     """From the opened matrices [(coefficient shape, point kind)] in
     transcript order: (direct set, groups {(log_h, kind): [matrix]},
@@ -770,9 +1121,18 @@ def _col_offs(all_mats, offs, members) -> tuple:
                  for j in range(all_mats[mi][0][1]))
 
 
-def _plan(machine, config) -> list:
-    """The stage keys a prove of this machine under this config calls, in
-    call order, from the shapes alone."""
+def _padded_host(p: np.ndarray, n: int) -> np.ndarray:
+    """A preprocessed trace zero-padded (or cut) to n rows, as
+    `padded_prep` makes it."""
+    if p.shape[0] < n:
+        p = np.concatenate([p, np.zeros((n - p.shape[0], p.shape[1]),
+                                        dtype=p.dtype)])
+    return p[:n]
+
+
+def _plan(machine, config, mk=None) -> list:
+    """The stage keys a prove of this machine under this config (on a mesh
+    with key mk) calls, in call order, from the shapes alone."""
     chips = machine.chips()
     pcs = config.pcs
     fri_config = pcs.config
@@ -793,7 +1153,7 @@ def _plan(machine, config) -> list:
         inputs, meta = dti
         keys.append(_trace_stage(machine, c, tuple(tuple(x.shape)
                                                    for x in inputs),
-                                 meta).key)
+                                 meta, mk).key)
         main_shapes.append((meta[1], c.width()))
     log_degrees = [_log2(h) for h, _w in main_shapes]
     perm_shapes = [(1 << ld, (len(c.all_interactions(machine)) + 1) * 5)
@@ -801,28 +1161,36 @@ def _plan(machine, config) -> list:
     quot_shapes = [(1 << ld, (1 << qd) * 5)
                    for ld, qd in zip(log_degrees, qds)]
 
+    def lde_shapes(shapes):
+        return [(h << log_blowup, w) for h, w in shapes]
+
     def commit(shapes, dshifts=None):
         for shape, ds in zip(shapes, dshifts or [1] * len(shapes)):
-            keys.append(_lde_stage(shape, ds, log_blowup, shift).key)
-        keys.extend(_tree_keys([(h << log_blowup, w) for h, w in shapes],
-                               hasher))
+            keys.append((_lde_stage(shape, ds, log_blowup, shift)
+                         if mk is None else
+                         _mesh_lde_stage(shape, ds, log_blowup, shift,
+                                         mk)).key)
+        keys.extend(_tree_keys(lde_shapes(shapes), hasher, mk))
 
     prep_list = [prep_shapes[ci] for ci in sorted(prep_shapes)]
     if prep_list:
         commit(prep_list)
     commit(main_shapes)
     for ci, (c, ld) in enumerate(zip(chips, log_degrees)):
+        prep_shape = prep_shapes.get(ci)
+        if mk is not None and prep_shape is not None:
+            prep_shape = (1 << ld, prep_shape[1])
         keys.append(_perm_stage(machine, c, ld, main_shapes[ci][1],
-                                prep_shapes.get(ci)).key)
+                                prep_shape, mk).key)
     commit(perm_shapes)
-    keys.append(_stack_canon_stage(len(chips)).key)
+    keys.append(_stack_canon_stage(len(chips), mk).key)
     for ci, (c, ld) in enumerate(zip(chips, log_degrees)):
         shapes_q = ((main_shapes[ci][0] << log_blowup, main_shapes[ci][1]),
                     (perm_shapes[ci][0] << log_blowup, perm_shapes[ci][1]),
                     ((prep_shapes[ci][0] << log_blowup, prep_shapes[ci][1])
                      if ci in prep_shapes else None))
         keys.append(_quotient_stage(machine, c, ld, qds[ci], shapes_q, shift,
-                                    log_blowup).key)
+                                    log_blowup, mk).key)
     commit(quot_shapes, [bb.h_exp(shift, 1 << qd) for qd in qds])
 
     all_mats = ([(prep_shapes[ci], ("pair", log_degrees[ci]))
@@ -833,29 +1201,36 @@ def _plan(machine, config) -> list:
                                                       log_degrees)]
                 + [(s, ("pow", qd)) for s, qd in zip(quot_shapes, qds)])
     direct, groups, offs = _opening_layout(all_mats, log_blowup, fri_config)
+    keys.extend(_gather_stage(all_mats[mi][0], mk).key
+                for mi in sorted(direct) if _sharded(all_mats[mi][0][0], mk))
     for (log_h, kind), members in groups.items():
         keys.append(_openings_stage(tuple(all_mats[mi][0] for mi in members),
-                                    kind, OPEN_CHUNK).key)
+                                    kind, OPEN_CHUNK, mk).key)
     seen_heights = set()
     for (log_h, kind), members in groups.items():
         log_lde = log_h + log_blowup
         keys.append(_reduced_stage(
             tuple(all_mats[mi][0] for mi in members), kind, log_lde,
-            _col_offs(all_mats, offs, members), shift, REDUCED_CHUNK).key)
+            _col_offs(all_mats, offs, members), shift, REDUCED_CHUNK,
+            mk).key)
         if log_lde in seen_heights:
-            keys.append(_add_stage((1 << log_lde, 5)).key)
+            keys.append(_add_stage((1 << log_lde, 5), mk).key)
         seen_heights.add(log_lde)
 
     log_max = max(seen_heights)
     log_stop = frim.fri_log_stop(fri_config, log_max, min(seen_heights))
     k0 = _ladder_entry_k0(all_mats, direct)
     for layer, log_m in enumerate(range(log_max, log_stop, -1)):
-        keys.append(_fri_pair_mat(log_m).key)
-        keys.extend(_tree_keys([(1 << (log_m - 1), 10)], hasher))
+        if _sharded(1 << log_m, mk) and not _sharded(1 << (log_m - 1), mk):
+            keys.append(_gather_stage((1 << log_m, 5), mk).key)
+        keys.append(_fri_pair_mat(log_m, mk).key)
+        keys.extend(_tree_keys([(1 << (log_m - 1), 10)], hasher, mk))
         keys.append(_ladder_challenge_stage(k0 if layer == 0 else 0,
-                                            poseidon.PARAM_SET).key)
+                                            poseidon.PARAM_SET, mk).key)
         keys.append(_fri_fold(log_m, frim.layer_shift(shift, layer),
-                              (log_m - 1) in seen_heights).key)
+                              (log_m - 1) in seen_heights, mk).key)
+    if _sharded(1 << log_stop, mk):
+        keys.append(_gather_stage((1 << log_stop, 5), mk).key)
 
     nq = fri_config.num_queries
 
@@ -864,26 +1239,38 @@ def _plan(machine, config) -> list:
         if lm:
             keys.append(_open_batch_stage(
                 tuple(committed), tuple((1 << k, 8) for k in range(lm, 0, -1)),
-                lm, nq).key)
+                lm, nq, mk).key)
 
     for log_m in range(log_max, log_stop, -1):
         open_keys([(1 << (log_m - 1), 10)])
     for group in ([prep_list] if prep_list else []) + [
             main_shapes, perm_shapes, quot_shapes]:
-        open_keys([(h << log_blowup, w) for h, w in group])
+        open_keys(lde_shapes(group))
     return keys
 
 
-def warmup_jit(machine, config, dry: bool = False, mesh=None) -> int:
+def _mesh_of(mesh, row_axis: str, device):
+    """The _Mesh of a prove on `mesh` (None without one)."""
+    if mesh is None:
+        return None
+    if torch.device(mesh.device_type).type != torch.device(device).type:
+        raise ValueError(f"a mesh of {mesh.device_type} devices for a prove "
+                         f"on {device}")
+    return _Mesh(mesh, row_axis)
+
+
+def warmup_jit(machine, config, dry: bool = False, mesh=None,
+               row_axis: str = "sp") -> int:
     """Capture every stage a prove of this machine's shapes calls, by one
     prove whose proof is dropped (the graphs keep their call sites in
     prove order, so a later prove only replays); dry=True only enumerates
-    the stage keys, from the shapes.  Returns the number of stage calls
-    of one prove."""
-    _reject_mesh(mesh)
+    the stage keys, from the shapes.  With a mesh, the stages of
+    `prove_jit(mesh=mesh, row_axis=row_axis)` (every rank calls it).
+    Returns the number of stage calls of one prove."""
     if dry:
-        return len(_plan(machine, config))
-    prove_jit(machine, config)
+        m = _mesh_of(mesh, row_axis, config.pcs.device)
+        return len(_plan(machine, config, m.key if m else None))
+    prove_jit(machine, config, mesh, row_axis)
     return len(STAGE_LOG)
 
 
@@ -892,11 +1279,24 @@ def warmup_jit(machine, config, dry: bool = False, mesh=None) -> int:
 # ---------------------------------------------------------------------------
 
 
-def prove_jit(machine, config, mesh=None) -> MachineProof:
+def prove_jit(machine, config, mesh=None, row_axis: str = "sp"
+              ) -> MachineProof:
     """Prove `machine` on config.pcs.device through the staged path; the
-    proof's bytes equal `Machine.prove`'s.  mesh: only None (ROADMAP
-    A11)."""
-    _reject_mesh(mesh)
+    proof's bytes equal `Machine.prove`'s.  mesh: a `parallel.mesh.
+    make_mesh` mesh whose axis `row_axis` shards the rows (every rank of
+    the process group calls this; each gets the same proof).  With
+    config.debug_checks on, a mesh prove gathers every main and
+    permutation trace outside the stages for the checks: on the card those
+    are eager collectives, up to two a chip."""
+    _MESH[0] = _mesh_of(mesh, row_axis, config.pcs.device)
+    try:
+        return _prove(machine, config,
+                      _MESH[0].key if _MESH[0] is not None else None)
+    finally:
+        _MESH[0] = None
+
+
+def _prove(machine, config, mk) -> MachineProof:
     _begin_prove()
     chips = machine.chips()
     pcs = config.pcs
@@ -907,41 +1307,65 @@ def prove_jit(machine, config, mesh=None) -> MachineProof:
     challenger = config.challenger()
     qds = [get_log_quotient_degree(machine, c) for c in chips]
 
-    # -- traces --------------------------------------------------------------
-    prep_indices, prep_list = {}, []
+    # -- traces (in the mesh layout: this rank's blocks) ---------------------
+    prep_indices, prep_host, prep_list = {}, [], []
     for ci, c in enumerate(chips):
         p = c.preprocessed_trace()
         if p is not None:
             prep_indices[ci] = len(prep_list)
-            prep_list.append(from_reference(np.asarray(p, dtype=np.uint32),
+            prep_host.append(np.asarray(p, dtype=np.uint32))
+            prep_list.append(from_reference(_host_block(prep_host[-1], mk),
                                             dev))
+    prep_shapes = [tuple(int(x) for x in p.shape) for p in prep_host]
+    heights = []
 
     def one_trace(c):
         dti = c.device_trace_inputs(machine)
         if dti is None:
-            return from_reference(np.asarray(c.generate_trace(machine),
-                                              dtype=np.uint32), dev)
+            t = np.asarray(c.generate_trace(machine), dtype=np.uint32)
+            heights.append(int(t.shape[0]))
+            return from_reference(_host_block(t, mk), dev)
         inputs, meta = dti
+        heights.append(int(meta[1]))
         fn = _trace_stage(machine, c, tuple(tuple(x.shape) for x in inputs),
-                          meta)
+                          meta, mk)
         return fn(*[from_reference(x, dev) for x in inputs])
 
     with stage("generate main traces"):
         main_traces = [one_trace(c) for c in chips]
-    log_degrees = [_log2(t.shape[0]) for t in main_traces]
+    if mk is None:
+        heights = [int(t.shape[0]) for t in main_traces]
+    main_shapes = [(h, int(t.shape[1])) for h, t in zip(heights,
+                                                         main_traces)]
+    log_degrees = [_log2(h) for h in heights]
 
-    def commit(mats, dshifts=None):
-        outs = [_lde_stage(_shape(m), d, log_blowup, shift)(m)
-                for m, d in zip(mats, dshifts or [1] * len(mats))]
-        committed = [o[2] for o in outs]
-        root, levels = _build_levels_jit(committed, hasher)
-        return (DeviceTree(committed, root, levels), [o[0] for o in outs],
-                [o[1] for o in outs])
+    def tree_of(committed, shapes):
+        """The tree of the committed matrices (global shapes)."""
+        if mk is None:
+            root, levels = _build_levels_jit(committed, hasher)
+            return DeviceTree(committed, root, levels)
+        root, levels = _build_levels_mesh(committed, shapes, hasher, mk)
+        return DeviceTree(committed, root, levels, [h for h, _w in shapes],
+                          mk)
+
+    def commit(mats, shapes, dshifts=None):
+        dshifts = dshifts or [1] * len(mats)
+        outs = [(_lde_stage(_shape(m), d, log_blowup, shift) if mk is None
+                 else _mesh_lde_stage(s, d, log_blowup, shift, mk))(m)
+                for m, s, d in zip(mats, shapes, dshifts)]
+        tree = tree_of([o[2] for o in outs],
+                       [(h << log_blowup, w) for h, w in shapes])
+        return tree, [o[0] for o in outs], [o[1] for o in outs]
+
+    def whole(x, h):
+        """A mesh prove's array of h rows, whole (the debug checks)."""
+        return _gather_rows(x) if _sharded(h, mk) else x
 
     # -- transcript ----------------------------------------------------------
     with stage("commit to preprocessed traces"):
         if prep_list:
-            prep_tree, prep_coeffs, prep_ldes = commit(prep_list)
+            prep_tree, prep_coeffs, prep_ldes = commit(prep_list,
+                                                       prep_shapes)
             prep_root = prep_tree.root
         else:
             prep_tree, prep_coeffs, prep_ldes = None, [], []
@@ -949,28 +1373,34 @@ def prove_jit(machine, config, mesh=None) -> MachineProof:
     challenger.observe_digest(prep_root)
 
     with stage("commit to main traces"):
-        main_tree, main_coeffs, main_ldes = commit(main_traces)
+        main_tree, main_coeffs, main_ldes = commit(main_traces, main_shapes)
     challenger.observe_digest(main_tree.root)
 
     perm_challenges = [challenger.sample_ext() for _ in range(3)]
     ch_arr = from_reference(np.array(perm_challenges, dtype=np.uint32), dev)
 
     def perm_one(ci, c, t):
-        w = int(t.shape[1])
-        if ci in prep_indices:
+        w, ld = main_shapes[ci][1], log_degrees[ci]
+        if ci not in prep_indices:
+            return _perm_stage(machine, c, ld, w, mk=mk)(t, ch_arr)
+        if mk is None:
             prep = prep_list[prep_indices[ci]]
-            return _perm_stage(machine, c, log_degrees[ci], w,
-                               _shape(prep))(t, prep, ch_arr)
-        return _perm_stage(machine, c, log_degrees[ci], w)(t, ch_arr)
+        else:  # zero-padded to the trace's rows before it is sharded
+            prep = from_reference(_host_block(_padded_host(
+                prep_host[prep_indices[ci]], 1 << ld), mk), dev)
+        return _perm_stage(machine, c, ld, w, (1 << ld, int(prep.shape[1]))
+                           if mk is not None else _shape(prep),
+                           mk)(t, prep, ch_arr)
 
     with stage("generate permutation traces"):
         perm_outs = [perm_one(ci, c, t)
                      for ci, (c, t) in enumerate(zip(chips, main_traces))]
     perm_flat = [o[0] for o in perm_outs]
+    perm_shapes = [(h, int(f.shape[1])) for h, f in zip(heights, perm_flat)]
     with stage("commit to permutation traces"):
-        perm_tree, perm_coeffs, perm_ldes = commit(perm_flat)
+        perm_tree, perm_coeffs, perm_ldes = commit(perm_flat, perm_shapes)
     challenger.observe_digest(perm_tree.root)
-    cs_host = to_numpy(_stack_canon_stage(len(chips))(
+    cs_host = to_numpy(_stack_canon_stage(len(chips), mk)(
         tuple(o[1] for o in perm_outs)))
     cumulative_sums = _to_ext_tuples(cs_host)
 
@@ -979,8 +1409,9 @@ def prove_jit(machine, config, mesh=None) -> MachineProof:
 
     if config.debug_checks:
         with stage("check constraints"):
-            for c, t, flat, cs in zip(chips, main_traces, perm_flat,
-                                      cumulative_sums):
+            for h, c, t, flat, cs in zip(heights, chips, main_traces,
+                                         perm_flat, cumulative_sums):
+                t, flat = whole(t, h), whole(flat, h)
                 perm_trace = bb.to_monty(flat).reshape(
                     flat.shape[0], flat.shape[1] // 5, 5)
                 check_constraints(machine, c, t, perm_trace,
@@ -990,40 +1421,52 @@ def prove_jit(machine, config, mesh=None) -> MachineProof:
     # -- quotient ------------------------------------------------------------
     def quotient_one(ci, chip):
         prep_lde = prep_ldes[prep_indices[ci]] if ci in prep_indices else None
-        shapes_q = (_shape(main_ldes[ci]), _shape(perm_ldes[ci]),
-                    _shape(prep_lde) if prep_lde is not None else None)
+        ps = prep_shapes[prep_indices[ci]] if ci in prep_indices else None
+        shapes_q = ((heights[ci] << log_blowup, main_shapes[ci][1]),
+                    (heights[ci] << log_blowup, perm_shapes[ci][1]),
+                    (ps[0] << log_blowup, ps[1]) if ps else None)
         fn = _quotient_stage(machine, chip, log_degrees[ci], qds[ci],
-                             shapes_q, shift, log_blowup)
+                             shapes_q, shift, log_blowup, mk)
         return fn(prep_lde, main_ldes[ci], perm_ldes[ci], ch_arr, alpha_arr,
                   from_reference(cs_host[ci], dev))
 
     with stage("compute quotient polynomial"):
         quotient_mats = [quotient_one(ci, c) for ci, c in enumerate(chips)]
+    quot_shapes = [(h, (1 << qd) * 5) for h, qd in zip(heights, qds)]
     with stage("commit to quotient chunks"):
         quotient_tree, quotient_coeffs, quotient_ldes = commit(
-            quotient_mats, [bb.h_exp(shift, 1 << qd) for qd in qds])
+            quotient_mats, quot_shapes,
+            [bb.h_exp(shift, 1 << qd) for qd in qds])
     challenger.observe_digest(quotient_tree.root)
 
     # -- openings ------------------------------------------------------------
     zeta = challenger.sample_ext()
     zeta_m = extf.ext_const(zeta, dev)
-    rounds = []  # (tree, coefficients, LDEs, point kinds)
+    rounds = []  # (tree, coefficients, LDEs, point kinds, global shapes)
     if prep_tree is not None:
         rounds.append((prep_tree, prep_coeffs, prep_ldes,
-                       [("pair", log_degrees[ci]) for ci in prep_indices]))
+                       [("pair", log_degrees[ci]) for ci in prep_indices],
+                       prep_shapes))
     rounds.append((main_tree, main_coeffs, main_ldes,
-                   [("pair", ld) for ld in log_degrees]))
+                   [("pair", ld) for ld in log_degrees], main_shapes))
     rounds.append((perm_tree, perm_coeffs, perm_ldes,
-                   [("pair", ld) for ld in log_degrees]))
+                   [("pair", ld) for ld in log_degrees], perm_shapes))
     rounds.append((quotient_tree, quotient_coeffs, quotient_ldes,
-                   [("pow", qd) for qd in qds]))
+                   [("pow", qd) for qd in qds], quot_shapes))
     all_coeffs = [c for r in rounds for c in r[1]]
     all_ldes = [x for r in rounds for x in r[2]]
-    all_mats = [(_shape(c), kind) for r in rounds
-                for c, kind in zip(r[1], r[3])]
+    all_mats = [(s, kind) for r in rounds for s, kind in zip(r[4], r[3])]
     direct, groups, offs = _opening_layout(all_mats, log_blowup, fri_config)
-    direct_polys = [to_numpy(bb.from_monty(all_coeffs[mi]))
-                    for mi in sorted(direct)]
+
+    def direct_poly(mi):
+        """A direct-opened matrix's coefficients, natural, on the host."""
+        (h, w), c = all_mats[mi][0], all_coeffs[mi]
+        if not _sharded(h, mk):
+            return to_numpy(bb.from_monty(c))
+        c = to_numpy(bb.from_monty(_gather_stage((h, w), mk)(c)))
+        return c[nttm.bitrev_indices(_log2(h))]
+
+    direct_polys = [direct_poly(mi) for mi in sorted(direct)]
     group_items = list(groups.items())
 
     def open_direct(mi):
@@ -1046,7 +1489,7 @@ def prove_jit(machine, config, mesh=None) -> MachineProof:
     with stage("open at zeta"):
         group_vals = [
             _openings_stage(tuple(all_mats[mi][0] for mi in members), kind,
-                            OPEN_CHUNK)(
+                            OPEN_CHUNK, mk)(
                 tuple(all_coeffs[mi] for mi in members), zeta_m)
             for (_lh, kind), members in group_items]
         fetched = iter(_fetch_all([v for vals in group_vals for v in vals]))
@@ -1074,16 +1517,18 @@ def prove_jit(machine, config, mesh=None) -> MachineProof:
             log_lde = log_h + log_blowup
             contrib = _reduced_stage(
                 tuple(all_mats[mi][0] for mi in members), kind, log_lde,
-                _col_offs(all_mats, offs, members), shift, REDUCED_CHUNK)(
-                tuple(all_ldes[mi] for mi in members), group_vals[gi],
-                zeta_m, alpha_fri_m)
+                _col_offs(all_mats, offs, members), shift, REDUCED_CHUNK,
+                mk)(tuple(all_ldes[mi] for mi in members), group_vals[gi],
+                    zeta_m, alpha_fri_m)
             if log_lde in reduced:
-                contrib = _add_stage((1 << log_lde, 5))(reduced[log_lde],
-                                                        contrib)
+                contrib = _add_stage((1 << log_lde, 5), mk)(reduced[log_lde],
+                                                            contrib)
             reduced[log_lde] = contrib
 
     # -- FRI: the ladder on the card, its roots fetched once, then the host
-    # challenger replays the layers' observes and samples -----------------
+    # challenger replays the layers' observes and samples.  In a mesh prove
+    # a layer is this rank's block while the ranks divide its half: the
+    # layer of D rows is gathered whole -----------------------------------
     log_max = max(reduced)
     log_stop = frim.fri_log_stop(fri_config, log_max, min(reduced))
     current = reduced[log_max]
@@ -1095,18 +1540,25 @@ def prove_jit(machine, config, mesh=None) -> MachineProof:
         pending = from_reference(np.array(challenger.input_buffer,
                                           dtype=np.uint32), dev)
         for layer, log_m in enumerate(range(log_max, log_stop, -1)):
-            pair_mat = _fri_pair_mat(log_m)(current)
-            root, levels = _build_levels_jit([pair_mat], hasher)
-            layer_trees.append(DeviceTree([pair_mat], root, levels))
+            if (_sharded(1 << log_m, mk)
+                    and not _sharded(1 << (log_m - 1), mk)):
+                current = _gather_stage((1 << log_m, 5), mk)(current)
+            pair_mat = _fri_pair_mat(log_m, mk)(current)
+            layer_trees.append(tree_of([pair_mat],
+                                       [(1 << (log_m - 1), 10)]))
+            root = layer_trees[-1]._root
             root_devs.append(root)
             kk = k0 if layer == 0 else 0
-            chal = _ladder_challenge_stage(kk, poseidon.PARAM_SET)
+            chal = _ladder_challenge_stage(kk, poseidon.PARAM_SET, mk)
             dev_state, beta_m = (chal(dev_state, pending, root) if kk
                                  else chal(dev_state, root))
             inject = (log_m - 1) in reduced
-            fold = _fri_fold(log_m, frim.layer_shift(shift, layer), inject)
+            fold = _fri_fold(log_m, frim.layer_shift(shift, layer), inject,
+                             mk)
             current = (fold(current, beta_m, reduced[log_m - 1]) if inject
                        else fold(current, beta_m))
+        if _sharded(1 << log_stop, mk):
+            current = _gather_stage((1 << log_stop, 5), mk)(current)
         commits = _fetch_all(root_devs)
         for r in commits:
             challenger.observe_digest(r)

@@ -24,6 +24,15 @@ the whole array, word for word.  Both local steps run `poly/ntt.dif`, so
 on the card they run the NTT kernels (`ntt_dif_whole` where the width is
 a multiple of 128, else `ntt_dif_ragged`); the TPU's [128, 128] modular
 matrix product is not needed.
+
+A row move (`move_rows`) sends each rank the rows it names of a
+row-sharded array, in one all_to_all with uneven splits and host tables
+of who sends what.  `dist_coeffs` (the inverse transform, coefficients
+left bit-reversed by block) and `dist_extend` (the move into the
+zero-padded natural order, then the forward transform) make the
+distributed LDE; `dist_eval` evaluates such coefficients in natural
+order.  The staged prover (machine/jit_prover.py) moves its quotient rows
+with `move_rows` too.
 """
 
 from __future__ import annotations
@@ -51,14 +60,32 @@ def axis_info(mesh, axis: str):
             mesh.get_group(axis))
 
 
-def dist_dif_applies(log_h: int, mesh, axis: str = "sp") -> bool:
-    """Whether `dist_dif` takes a transform of 2^log_h rows over `axis`:
+def dif_applies(log_h: int, d: int) -> bool:
+    """Whether `dist_dif` takes a transform of 2^log_h rows over d ranks:
     a 128-point first step, whole column slices and whole blocks on every
     rank (valida_tpu/machine/jit_prover.py::_dist_dif_applies)."""
+    return log_h >= LOG_B and B % d == 0 and ((1 << log_h) >> LOG_B) % d == 0
+
+
+def dist_dif_applies(log_h: int, mesh, axis: str = "sp") -> bool:
+    """`dif_applies` on the ranks of mesh axis `axis` (False without it)."""
     if mesh is None or axis not in tuple(mesh.mesh_dim_names or ()):
         return False
-    d = axis_info(mesh, axis)[0]
-    return log_h >= LOG_B and B % d == 0 and ((1 << log_h) >> LOG_B) % d == 0
+    return dif_applies(log_h, axis_info(mesh, axis)[0])
+
+
+# collectives issued on the card or the host: "eager" ones, and "captured"
+# into a CUDA graph (machine/jit_prover.py adds a graph's at each replay to
+# "replayed")
+COLLECTIVES = {"eager": 0, "captured": 0, "replayed": 0}
+
+
+def count_collective() -> None:
+    """Count one collective about to be issued (see COLLECTIVES)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        COLLECTIVES["captured"] += 1
+    else:
+        COLLECTIVES["eager"] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,6 +127,7 @@ def dist_dif(a_local: torch.Tensor, mesh, axis: str = "sp",
     # 1. chunk j: this rank's rows of the view at rank j's columns
     x = a_local.reshape(B // d, d, md, cols).transpose(0, 1).contiguous()
     y = torch.empty_like(x)
+    count_collective()
     dist.all_to_all_single(y, x, group=group)  # [D, 128/D, M/D, cols]
     # 2. the 128-point step and the twiddles of this rank's columns
     y = nttm.dif(y.reshape(B, md * cols), inverse)
@@ -107,6 +135,7 @@ def dist_dif(a_local: torch.Tensor, mesh, axis: str = "sp",
     y = bb.mul(y.reshape(B, md, cols), tw[:, :, None])
     # 3. chunk j: rank j's rows of the view at this rank's columns
     z = torch.empty_like(y)
+    count_collective()
     dist.all_to_all_single(z, y, group=group)
     # z[i, a_l, t_l] is row a_l of this rank's blocks at column i·M/D + t_l
     z = z.reshape(d, B // d, md, cols).transpose(0, 1).reshape(B // d, m,
@@ -119,40 +148,137 @@ def dist_dif(a_local: torch.Tensor, mesh, axis: str = "sp",
 
 
 @functools.lru_cache(maxsize=None)
-def _lde_moves(log_n: int, log_blowup: int, d: int, r: int):
-    """How rank r's rows move between the two transforms of an LDE.  Row
-    j of the inverse transform's output is the coefficient i = bitrev(j);
-    it goes to the rank whose block of the padded [N·2^b] array holds row
-    i.  Returns (the local rows in the order they are sent, the rows sent
-    to each rank, the rows received from each rank, the coefficient index
-    i of each received row in the order it arrives)."""
-    n_in = (1 << log_n) // d
-    n_out = (1 << (log_n + log_blowup)) // d
-    rev = nttm.bitrev_indices(log_n).astype(np.int64)
-    mine = rev[r * n_in:(r + 1) * n_in]
-    send_counts = np.bincount(mine // n_out, minlength=d)
-    # from each rank s, in rank order: its coefficients bound here, ascending
-    recv_i = [np.sort(blk[blk // n_out == r])
-              for blk in rev.reshape(d, n_in)]
-    return (np.argsort(mine, kind="stable"),
-            tuple(int(c) for c in send_counts),
-            tuple(len(v) for v in recv_i), np.concatenate(recv_i))
+def row_moves(src_rows: int, want, args: tuple, d: int, r: int):
+    """Rank r's part in a row move.  A source array of src_rows rows is
+    sharded over d ranks in contiguous blocks; every rank q takes the rows
+    want(d, q, *args) (global indices, an array) in that order, so a row
+    may go to several ranks.  Returns (the local rows rank r sends, in the
+    order sent; the rows sent to each rank; the rows received from each
+    rank; the place in rank r's output of each received row, in arrival
+    order; the output's rows)."""
+    blk = src_rows // d
+    wants = [np.asarray(want(d, q, *args), dtype=np.int64) for q in range(d)]
+    sends = [w[w // blk == r] - r * blk for w in wants]
+    owner = wants[r] // blk
+    return (np.concatenate(sends), tuple(len(s) for s in sends),
+            tuple(int(c) for c in np.bincount(owner, minlength=d)),
+            np.argsort(owner, kind="stable"), len(owner))
+
+
+def _move_tables(src_rows, want, args, d, r):
+    """Device tables of `move_rows` (send order, places), u32."""
+    send, _s, _r, place, _n = row_moves(src_rows, want, args, d, r)
+    return send.astype(np.uint32), place.astype(np.uint32)
+
+
+def move_rows(local: torch.Tensor, mesh, axis: str, want,
+              args: tuple) -> torch.Tensor:
+    """This rank's rows of the move `row_moves(N, want, args, D, r)` of the
+    row-sharded array whose block here is local [N/D, ...]: one
+    all_to_all with uneven splits, then each row to its place.  want must
+    be a module-level function (it keys the cached tables)."""
+    d, r, group = axis_info(mesh, axis)
+    src_rows = int(local.shape[0]) * d
+    _s, sent, received, _p, n_out = row_moves(src_rows, want, args, d, r)
+    send_order, place = table(_move_tables, src_rows, want, args, d, r,
+                              device=local.device)
+    rest = tuple(local.shape[1:])
+    send = local.index_select(0, send_order.long())
+    recv = local.new_empty((sum(received),) + rest)
+    count_collective()
+    dist.all_to_all_single(recv, send, output_split_sizes=list(received),
+                           input_split_sizes=list(sent), group=group)
+    return local.new_empty((n_out,) + rest).index_copy_(0, place.long(),
+                                                        recv)
+
+
+def _monty(canon: np.ndarray) -> np.ndarray:
+    return ((canon.astype(np.uint64) << np.uint64(32))
+            % np.uint64(bb.P)).astype(np.uint32)
 
 
 @functools.lru_cache(maxsize=None)
-def _lde_tables(log_n: int, log_blowup: int, shift: int, d: int, r: int):
-    """Device tables of `dist_coset_lde` on rank r: (send order, the row
-    of the padded block each received row lands at, its Montgomery scale
-    shift^i / N), u32."""
-    send_order, _sent, _received, recv_i = _lde_moves(log_n, log_blowup, d,
-                                                      r)
+def _coeff_scale(log_n: int, dshift: int, d: int, r: int) -> np.ndarray:
+    """Montgomery N^-1 · dshift^-i for the coefficients i = bitrev(j) of
+    the rows j of rank r's block."""
+    n = 1 << log_n
+    i = nttm.bitrev_indices(log_n)[r * (n // d):(r + 1) * (n // d)]
+    pw = nttm._powers_host(bb.h_inv(dshift), n)[i].astype(np.uint64)
+    return _monty(pw * np.uint64(bb.h_inv(n)) % np.uint64(bb.P))
+
+
+def _extend_wanted(d: int, q: int, log_n: int, log_blowup: int):
+    """The coefficient rows (bit-reversed order) that rank q's block of the
+    zero-padded [N·2^b] natural array holds: coefficient i sits at row
+    bitrev(i)."""
     n_out = (1 << (log_n + log_blowup)) // d
-    powers = nttm._powers_host(shift, 1 << log_n).astype(np.uint64)
-    scale = (powers[recv_i] * np.uint64(bb.h_inv(1 << log_n))
-             % np.uint64(bb.P))
-    scale = (scale << np.uint64(32)) % np.uint64(bb.P)
-    return (send_order.astype(np.uint32),
-            (recv_i - r * n_out).astype(np.uint32), scale.astype(np.uint32))
+    i = np.arange(q * n_out, min((q + 1) * n_out, 1 << log_n))
+    return nttm.bitrev_indices(log_n)[i]
+
+
+@functools.lru_cache(maxsize=None)
+def _extend_scale(log_n: int, log_blowup: int, shift: int, factor: int,
+                  d: int, r: int) -> np.ndarray:
+    """Montgomery factor · shift^i for the coefficients i that rank r
+    receives."""
+    n_out = (1 << (log_n + log_blowup)) // d
+    i = np.arange(r * n_out, min((r + 1) * n_out, 1 << log_n))
+    pw = nttm._powers_host(shift, 1 << log_n)[i].astype(np.uint64)
+    return _monty(pw * np.uint64(factor) % np.uint64(bb.P))
+
+
+def dist_coeffs(evals_local: torch.Tensor, mesh, axis: str = "sp",
+                dshift: int = 1) -> torch.Tensor:
+    """Coefficients of the row-sharded evaluations on the coset dshift·H_N
+    (this rank's block evals_local [N/D, ...], Montgomery): this rank's
+    block of them in bit-reversed order, the order the inverse `dist_dif`
+    leaves them (row j holds coefficient bitrev(j)).  Two all_to_alls."""
+    d, r, _ = axis_info(mesh, axis)
+    log_n = (int(evals_local.shape[0]) * d).bit_length() - 1
+    scale = table(_coeff_scale, log_n, dshift % bb.P, d, r,
+                  device=evals_local.device)
+    rev = dist_dif(evals_local, mesh, axis, inverse=True)
+    return bb.mul(rev, scale.reshape((-1,) + (1,) * (rev.dim() - 1)))
+
+
+def dist_extend(coeffs_local: torch.Tensor, mesh, log_blowup: int,
+                shift: int, axis: str = "sp",
+                factor: int = 1) -> torch.Tensor:
+    """Evaluations on the coset shift·H_{N·2^b}, bit-reversed, of the
+    polynomials whose coefficients, times `factor`, are row-sharded in
+    bit-reversed order (`dist_coeffs`' layout, this rank's block
+    coeffs_local [N/D, ...], Montgomery): this rank's block [N·2^b/D,
+    ...].  The bit-reversal and the zero padding move rows between ranks,
+    in one all_to_all with uneven splits, where each row lands at its
+    place in the padded array, scaled by factor^-1 · shift^i; then the
+    forward `dist_dif`.  Three all_to_alls."""
+    d, r, _ = axis_info(mesh, axis)
+    log_n = (int(coeffs_local.shape[0]) * d).bit_length() - 1
+    rest = tuple(coeffs_local.shape[1:])
+    moved = move_rows(coeffs_local, mesh, axis, _extend_wanted,
+                      (log_n, log_blowup))
+    scale = table(_extend_scale, log_n, log_blowup, shift % bb.P,
+                  bb.h_inv(factor % bb.P), d, r, device=coeffs_local.device)
+    n_out = (1 << (log_n + log_blowup)) // d
+    padded = torch.cat([
+        bb.mul(moved, scale.reshape((-1,) + (1,) * len(rest))),
+        moved.new_zeros((n_out - int(moved.shape[0]),) + rest)])
+    return dist_dif(padded, mesh, axis, inverse=False)
+
+
+def dist_eval(coeffs_local: torch.Tensor, mesh, shift: int,
+              axis: str = "sp") -> torch.Tensor:
+    """Evaluations on the coset shift·H_N, in natural order, of the
+    polynomials whose coefficients are row-sharded in bit-reversed order
+    (`dist_coeffs`' layout, this rank's block coeffs_local [N/D, ...],
+    Montgomery): this rank's block, the rows of
+    `ntt.coset_eval_from_coeffs`.  `dist_extend` without a blowup, then
+    the bit-reversal moved back: four all_to_alls."""
+    log_n = (int(coeffs_local.shape[0])
+             * axis_info(mesh, axis)[0]).bit_length() - 1
+    rev = dist_extend(coeffs_local, mesh, 0, shift, axis)
+    # the rows of rank q's natural block sit at their bit-reversed places
+    return move_rows(rev, mesh, axis, _extend_wanted, (log_n, 0))
 
 
 def dist_coset_lde(evals_local: torch.Tensor, mesh, log_blowup: int,
@@ -160,28 +286,9 @@ def dist_coset_lde(evals_local: torch.Tensor, mesh, log_blowup: int,
     """Low-degree extension of the row-sharded evaluations on H_N (this
     rank's block evals_local [N/D, ...], Montgomery) to the coset
     shift·H_{N·2^b}, bit-reversed: this rank's block [N·2^b/D, ...] of
-    `ntt.coset_lde(evals, log_blowup, shift, out_bitrev=True)`.
-
-    The inverse `dist_dif` leaves the coefficients in bit-reversed order,
-    block by block; the bit-reversal gather and the zero-padding move rows
-    between ranks, in one all_to_all with uneven splits, where each row
-    lands at its place in the padded array, scaled by shift^i / N.  Then
-    the forward `dist_dif`.  Five all_to_alls per LDE: two per transform
-    and the move between them."""
-    d, r, group = axis_info(mesh, axis)
-    n = int(evals_local.shape[0]) * d
-    log_n = n.bit_length() - 1
-    rest = tuple(evals_local.shape[1:])
-    dev = evals_local.device
-    coeffs_rev = dist_dif(evals_local, mesh, axis, inverse=True)
-    _o, send_counts, recv_counts, _i = _lde_moves(log_n, log_blowup, d, r)
-    send_order, place, scale = table(_lde_tables, log_n, log_blowup,
-                                     shift % bb.P, d, r, device=dev)
-    send = coeffs_rev.index_select(0, send_order.long())
-    recv = send.new_empty((sum(recv_counts),) + rest)
-    dist.all_to_all_single(recv, send, output_split_sizes=list(recv_counts),
-                           input_split_sizes=list(send_counts), group=group)
-    padded = send.new_zeros(((n << log_blowup) // d,) + rest)
-    padded[place.long()] = bb.mul(recv,
-                                  scale.reshape((-1,) + (1,) * len(rest)))
-    return dist_dif(padded, mesh, axis, inverse=False)
+    `ntt.coset_lde(evals, log_blowup, shift, out_bitrev=True)`.  The
+    inverse `dist_dif` leaves N times the coefficients, which
+    `dist_extend` scales once with shift^i: five all_to_alls."""
+    n = int(evals_local.shape[0]) * axis_info(mesh, axis)[0]
+    return dist_extend(dist_dif(evals_local, mesh, axis, inverse=True), mesh,
+                       log_blowup, shift, axis, factor=n)

@@ -1,13 +1,18 @@
-"""Start ranks, and the multi-device dry run of the sharded prover steps.
+"""Start ranks, the multi-device dry run of the sharded prover steps,
+and a distributed prove.
 
     python -m valida_tpu_torch.parallel.dryrun N [--device cpu]
-    torchrun --nproc-per-node N -m valida_tpu_torch.parallel.dryrun N
+        [--prove LOG_CYCLES]
+    torchrun --nproc-per-node N -m valida_tpu_torch.parallel.dryrun N ...
 
 Counterpart of the sharded half of `__graft_entry__.dryrun_multichip`:
 `sharded_prove_fn` over a (dp, N/dp) mesh (dp = 2 where N is even and
 above 1) on its shapes (dp traces of 64 rows x 8 columns, K = 2, seed 0).
-The first form spawns N ranks itself (`run_ranks`); under torchrun each
-process is one rank.  On "cuda" the kernels are built first
+With --prove, every rank proves the ALU loop of 2^LOG_CYCLES cycles
+(`machine.examples.alu_loop_program`, run by the C++ core) by
+`prove_jit(mesh=make_mesh(N))` after `warmup_jit`, and the ranks' proofs
+must agree.  The first form spawns N ranks itself (`run_ranks`); under
+torchrun each process is one rank.  On "cuda" the kernels are built first
 (`tooling/prebaked.install`), one NCCL rank per card.
 """
 
@@ -15,6 +20,8 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import gc
+import hashlib
 import os
 import pickle
 import sys
@@ -111,13 +118,56 @@ def dryrun_multichip(n_devices: int, device="cuda"):
     return to_numpy(roots), to_numpy(phi_last)
 
 
+def prove_multichip(n_devices: int, log_cycles: int, device="cuda"):
+    """One rank's part of a distributed prove, in a process group of
+    n_devices ranks: the ALU loop of 2^log_cycles cycles by prove_jit on a
+    (1, n_devices) mesh after warmup_jit, without the debug checks ->
+    (the proof's SHA-256, the warm prove's seconds)."""
+    from ..core.config import default_config
+    from ..core.program import ProgramROM
+    from ..machine import examples, jit_prover
+    from ..machine.basic import BasicMachine
+    from ..tooling.serde import serialize_proof
+
+    mesh = make_mesh(n_devices, device=device)
+    m = BasicMachine()
+    m.program().set_program_rom(ProgramROM(
+        examples.alu_loop_program((1 << log_cycles) // 14)))
+    m.cpu().fp = 0x1000000
+    m.run_native(build_lists=False)
+    cfg = default_config(debug_checks=False, device=device)
+    dev = resolve(device)
+    try:
+        jit_prover.warmup_jit(m, cfg, mesh=mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = jit_prover.prove_jit(m, cfg, mesh=mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return hashlib.sha256(serialize_proof(proof)).hexdigest(), seconds
+    finally:
+        # a captured collective must go before its process group
+        jit_prover.release_graphs()
+        gc.collect()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n_devices", type=int)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds before a collective or the run fails")
+    ap.add_argument("--prove", type=int, metavar="LOG_CYCLES",
+                    help="prove the ALU loop of 2^LOG_CYCLES cycles on the "
+                         "mesh instead of the dry run")
     args = ap.parse_args(argv)
+    if args.prove is None:
+        fn, fn_args = dryrun_multichip, (args.n_devices, args.device)
+    else:
+        fn, fn_args = prove_multichip, (args.n_devices, args.prove,
+                                        args.device)
     dev = resolve(args.device)
     if dev.type == "cuda":
         from ..tooling.prebaked import install
@@ -128,14 +178,26 @@ def main(argv=None) -> int:
         _init_group(rank, int(os.environ["WORLD_SIZE"]), dev, "env://",
                     args.timeout, card=int(os.environ["LOCAL_RANK"]))
         try:
-            results = [dryrun_multichip(args.n_devices, args.device)]
+            results = [fn(*fn_args)]
+            if args.prove is not None:  # every rank's digest, on each
+                digests = [None] * dist.get_world_size()
+                dist.all_gather_object(digests, results[0][0])
+                results = [(d, results[0][1]) for d in digests]
         finally:
             dist.destroy_process_group()
     else:
         rank = 0
-        results = run_ranks(dryrun_multichip, args.n_devices, dev,
-                            args.n_devices, args.device,
+        results = run_ranks(fn, args.n_devices, dev, *fn_args,
                             timeout_s=args.timeout)
+    if args.prove is not None:
+        if len({d for d, _s in results}) != 1:
+            print("prove: the ranks' proofs differ", file=sys.stderr)
+            return 1
+        if rank == 0:
+            print(f"prove on {args.n_devices} {args.device} ranks: the ALU "
+                  f"loop of 2^{args.prove} cycles, sha256 {results[0][0]}, "
+                  f"a warm prove {max(s for _d, s in results):.3f} s")
+        return 0
     roots, phi = results[0]
     if any(not (np.array_equal(r, roots) and np.array_equal(p, phi))
            for r, p in results):

@@ -25,12 +25,13 @@ def coset_points(log_n: int, shift: int) -> np.ndarray:
     return ((canon << 32) % np.uint64(bb.P)).astype(np.uint32)
 
 
-def coset_points_device(log_n: int, shift: int, device) -> torch.Tensor:
-    """The words of `coset_points`, built on `device` from log_n scalar
-    constants (square and multiply over the bits of the index) rather
-    than copied from a host table."""
-    n = 1 << log_n
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def coset_points_device(log_n: int, shift: int, device, start: int = 0,
+                        count: int | None = None) -> torch.Tensor:
+    """The words of `coset_points` (or of its rows [start, start + count)),
+    built on `device` from log_n scalar constants (square and multiply over
+    the bits of the index) rather than copied from a host table."""
+    n = (1 << log_n) if count is None else count
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     acc = torch.full((n,), bb.monty_scalar(shift % bb.P), dtype=torch.int32,
                      device=device)
     g = bb.two_adic_generator(log_n)
