@@ -12,13 +12,20 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    ntt_dif_whole (one, two and three passes, even and uneven splits,
    constant arrays of 0 and p - 1), ntt_dif_ragged (the same, at ragged
    widths from 1 to 200 columns), keccak256 and poseidon2 at the listed
-   shapes;
+   shapes; then (field): the field kernels of csrc/field.cu,
+   field_elementwise (every op code), field_ext_mul, field_inv and
+   field_ext_inv, on random words from a numpy seed at 2^20 and 2^21
+   elements (canonical words and any u32 bit pattern), on every pair of
+   edge words (0, 1, p - 1, p, 2p, 2^31 - 1, 2^31, 2^32 - 1, ...), and on the
+   prover's broadcast patterns ([K, Q] x [K, 1], [n, 1] x [1, 5], a 0-d
+   tensor, a scalar word, a strided view, a column, an empty tensor);
 4. runs three commits through `commit_forward`, each with the launch
    counters set to 0 just before it and read just after, requires every
-   kernel of that path to have launched, records every kernel call of the
-   commit and holds its output against the plain version on the same
-   inputs, and checks each root against the one the JAX package's numpy
-   path computed:
+   kernel of that path to have launched (the field kernels on every path),
+   records every kernel call of the commit (of the field kernels' calls
+   every 64th of each kernel) and holds its output against the plain
+   version on the same inputs, and checks each root against the one the
+   JAX package's numpy path computed:
    (a) `__graft_entry__.entry()`'s seed-0 [2^12, 32] trace,
    (b) the full-size commit, 2^19 x 128 (bench.py's shape),
    (c) 2^19 x 51, an odd width;
@@ -87,8 +94,9 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    flipped byte's exit 1 (prove's launch counters read in its process);
    then `prove --jit`, its file's SHA-256 and its time beside prove's;
 5. times each kernel at the main path's shapes with CUDA events, beside its
-   bound and its plain version, and times commits (b) and (c), the NTT,
-   (d)'s commit and opening, (f)'s and (k)'s prove (median of 5, by stage,
+   bound and its plain version (the field kernels, shorter than the host's
+   enqueue of them, as CUDA graph replays), and times commits (b) and (c),
+   the NTT, (d)'s commit and opening, (f)'s and (k)'s prove (median of 5, by stage,
    memory peak; (k): median of 3) and verify, (f)'s with a profile, and
    (h)'s prove by stage beside (k)'s; then path (j): (k)'s machine and op
    arrays under `default_config(debug_checks=False)` by `warmup_jit`
@@ -97,7 +105,9 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    and the two tampers, no capture in a warm prove, the median of 5
    proves, the memory peak with the graph pool, one prove by stage and one
    profiled, whose runs of our kernels on the device, and launches
-   counted, must equal those of (k)'s recorded eager prove;
+   counted, must equal those of (k)'s recorded eager prove (the field
+   kernels': those of (j)'s own eager first runs in its warm-up, since
+   (k) runs the debug checks and (j) does not);
    then, on a one-rank NCCL process group (`make_mesh(1)`), the
    distributed staged prover: (jm) (j)'s machine and config by
    `warmup_jit(mesh=)` (its stage calls == `warmup_jit(mesh=, dry=True)`'s
@@ -135,6 +145,9 @@ import numpy as np
 P = 2013265921
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# the H100's L2 holds 50 MB: the field kernels' timings read their operands
+# from sets that hold four times that together (graph_ms)
+L2_ROTATION = 4 * 50 * 2**20
 # 32-bit integer add, logic, shift and multiply results per clock per SM on
 # compute capability 9.0 (64 INT32 units per SM: NVIDIA H100 architecture
 # whitepaper; CUDA C++ Programming Guide, arithmetic instruction throughput).
@@ -180,6 +193,41 @@ POSEIDON2_ALU_OPS = POSEIDON2_PRODUCTS * 2 + POSEIDON2_ADDITIONS * 2
 POSEIDON2_BLOCK_OPS = max(POSEIDON2_MUL_OPS,
                           (POSEIDON2_MUL_OPS + POSEIDON2_ALU_OPS) / 2)
 
+# issue slots of the field kernels (csrc/field.cuh), counted as above: a
+# Montgomery product is 3 multiplies and 2 others; taking an operand word
+# mod p (`canon`) is 3 others (add 2p where negative, subtract p, minimum).
+# field_elementwise's mul: one product of two operands.  field_ext_mul,
+# per element: 25 wide products accumulated by multiply-adds and 5
+# reductions of 2 multiplies; 10 operands taken mod p, 5 doublings (2),
+# 10 folds of the 64-bit sums and 5 reductions' corrections (2 each).
+# field_inv: 39 products (29 squarings, 10 products) and one canon.
+# field_ext_inv: 56 products (12 for three Frobenius maps, whose
+# coefficient 0 is kept, 5 to scale by the norm's inverse, 39 in it), 2
+# extension products as above without their canon, the norm's one
+# coefficient (5 wide products and a reduction: 7 multiplies; 4 doublings,
+# 2 folds and a correction: 14 others) and 5 canon.  The least time is the
+# larger of the multiplies alone and half of all instructions, as for a
+# butterfly.
+CANON_OPS = 3
+FIELD_OPS = {
+    "field_elementwise": max(3, (3 + 2 + 2 * CANON_OPS) / 2),
+    "field_ext_mul": max(35, (35 + 10 * CANON_OPS + 5 * 2 + 10 * 2
+                              + 5 * 2) / 2),
+    "field_inv": max(39 * 3, (39 * 5 + CANON_OPS) / 2),
+    "field_ext_inv": max(56 * 3 + 2 * 35 + 7,
+                         (56 * 5 + 2 * (35 + 40) + 7 + 14
+                          + 5 * CANON_OPS) / 2),
+}
+# the field kernels (csrc/field.cu), which every path runs: a commit or a
+# PCS proof runs the element-wise kernel (a PCS opening the extension
+# product and inverse too), a machine prove all four
+FIELD = ("field_elementwise", "field_ext_mul", "field_inv", "field_ext_inv")
+FIELD_PCS = ("field_elementwise", "field_ext_mul", "field_ext_inv")
+# a path's field kernel calls held against plain: every FIELD_SAMPLE-th of
+# each kernel (the first, then every 64th); a 2^20-cycle prove makes tens
+# of thousands
+FIELD_SAMPLE = 64
+
 # 32-byte roots of commit_forward on default_rng(0) traces, computed by the
 # JAX package's numpy path (tests/test_torch_commit.py::reference_commit_root)
 GOLDEN = {
@@ -194,9 +242,9 @@ TRACE_SUMS = {(12, 32): 131840869016140, (19, 128): 67547734501292161,
 
 # the commits of the main path: (log_n, cols) and the kernels each must run
 PATHS = {
-    "a": ((12, 32), ("ntt_dif_ragged", "keccak256")),
-    "b": ((19, 128), ("ntt_dif_whole", "keccak256")),
-    "c": ((19, 51), ("ntt_dif_ragged", "keccak256")),
+    "a": ((12, 32), ("ntt_dif_ragged", "keccak256", "field_elementwise")),
+    "b": ((19, 128), ("ntt_dif_whole", "keccak256", "field_elementwise")),
+    "c": ((19, 51), ("ntt_dif_ragged", "keccak256", "field_elementwise")),
 }
 
 # path (s): the streamed commit (valida_tpu_torch/commit/streamed.py) of
@@ -208,9 +256,11 @@ PATHS = {
 STREAMED_SHAPE = (24, 64)
 STREAMED_TILED = ((22, 64), 16, 1 << 20)
 STREAMED_PATHS = {
-    "s keccak": ("keccak", ("ntt_dif_ragged", "keccak256"),
+    "s keccak": ("keccak", ("ntt_dif_ragged", "keccak256",
+                            "field_elementwise"),
                  ("ntt_dif_whole", "poseidon2")),
-    "s poseidon2": ("poseidon2", ("ntt_dif_ragged", "poseidon2"),
+    "s poseidon2": ("poseidon2", ("ntt_dif_ragged", "poseidon2",
+                                  "field_elementwise"),
                     ("ntt_dif_whole", "keccak256")),
 }
 STREAMED_GOLDEN = {
@@ -225,21 +275,21 @@ STREAMED_GOLDEN = {
 # kernels the path must and must not launch
 DIST_DIF_SHAPES = [(20, 51), (19, 128)]
 DIST_PROVE_SHAPE = (2, 19, 51, 8)
-DIST_KERNELS = (("ntt_dif_whole", "ntt_dif_ragged", "keccak256"),
-                ("poseidon2",))
+DIST_KERNELS = (("ntt_dif_whole", "ntt_dif_ragged", "keccak256",
+                 "field_elementwise"), ("poseidon2",))
 
 # the PCS proofs of the main path: (log_n, cols) of the three committed
 # matrices (round 1 commits the first two, round 2 the third), the Merkle
 # hasher, and the kernels each must and must not launch
 PCS_PATHS = {
     "d": (((19, 128), (16, 51), (19, 10)), "poseidon2",
-          ("poseidon2", "ntt_dif_whole", "ntt_dif_ragged"),
+          ("poseidon2", "ntt_dif_whole", "ntt_dif_ragged") + FIELD_PCS,
           ("keccak256",)),
     "d'": (((16, 128), (13, 51), (16, 10)), "poseidon2",
-           ("poseidon2", "ntt_dif_whole", "ntt_dif_ragged"),
+           ("poseidon2", "ntt_dif_whole", "ntt_dif_ragged") + FIELD_PCS,
            ("keccak256",)),
     "e": (((16, 128), (13, 51), (16, 10)), "keccak",
-          ("keccak256", "ntt_dif_whole", "ntt_dif_ragged"),
+          ("keccak256", "ntt_dif_whole", "ntt_dif_ragged") + FIELD_PCS,
           ("poseidon2",)),
 }
 # the opening point, an element of the degree-5 extension
@@ -284,10 +334,14 @@ PCS_GOLDEN = {
 # seed=7) under default_config(hasher=...), and the kernels each must and
 # must not launch.  (m) is the golden fixture's machine and config.
 MACHINE_PATHS = {
-    "m": (None, "keccak", ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
-    "f'": (14, "keccak", ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
-    "g'": (14, "poseidon2", ("poseidon2", "ntt_dif_ragged"), ("keccak256",)),
-    "f": (20, "keccak", ("keccak256", "ntt_dif_ragged"), ("poseidon2",)),
+    "m": (None, "keccak", ("keccak256", "ntt_dif_ragged") + FIELD,
+          ("poseidon2",)),
+    "f'": (14, "keccak", ("keccak256", "ntt_dif_ragged") + FIELD,
+           ("poseidon2",)),
+    "g'": (14, "poseidon2", ("poseidon2", "ntt_dif_ragged") + FIELD,
+           ("keccak256",)),
+    "f": (20, "keccak", ("keccak256", "ntt_dif_ragged") + FIELD,
+          ("poseidon2",)),
 }
 FIXTURE = "tests/fixtures/mini_proof_v1.cbor"
 # SHA-256 of the serialized proofs of (f') and (g') as the JAX package's
@@ -310,12 +364,14 @@ F_ROOTS = [
 # interpreter ("run": the Python step loop; "lists" and "arrays": the C++
 # core, run_native(build_lists=True / False)) and the kernels each must and
 # must not launch.  A path's pin is that of the first word of its name.
-BASIC_KERNELS = (("keccak256", "ntt_dif_ragged"), ("poseidon2",))
+BASIC_KERNELS = (("keccak256", "ntt_dif_ragged") + FIELD, ("poseidon2",))
 # the distributed prover's paths (jm) and (g'm) on one rank: every LDE of
 # 128 rows or more runs dist_dif, whose two steps' widths are multiples of
 # 128 there (ntt_dif_whole)
-MESH_KERNELS = {"jm": (("keccak256", "ntt_dif_whole"), ("poseidon2",)),
-                "g'm": (("poseidon2", "ntt_dif_whole"), ("keccak256",))}
+MESH_KERNELS = {"jm": (("keccak256", "ntt_dif_whole") + FIELD,
+                       ("poseidon2",)),
+                "g'm": (("poseidon2", "ntt_dif_whole") + FIELD,
+                        ("keccak256",))}
 BASIC_PATHS = {
     "n": ("fib", "run"),
     "h'": (13, "run"),
@@ -503,6 +559,16 @@ SOURCES = {
                        "valida_tpu/poly/mxu_ntt.py:397"),
     "keccak256": ("valida_tpu_torch/csrc/keccak.cu",
                   "valida_tpu/crypto/keccak.py:212"),
+    # no Pallas kernel: the JAX package's u32 Montgomery code, which XLA
+    # fuses inside its jitted stages
+    "field_elementwise": ("valida_tpu_torch/csrc/field.cu",
+                          "valida_tpu/field/babybear.py:136"),
+    "field_ext_mul": ("valida_tpu_torch/csrc/field.cu",
+                      "valida_tpu/field/ext.py:60"),
+    "field_inv": ("valida_tpu_torch/csrc/field.cu",
+                  "valida_tpu/field/babybear.py:195"),
+    "field_ext_inv": ("valida_tpu_torch/csrc/field.cu",
+                      "valida_tpu/field/ext.py:98"),
 }
 
 
@@ -746,6 +812,100 @@ def dist_path(dev, run_recorded, cuda_ms, rand_field) -> dict:
     return counts
 
 
+# (field): the words where the arithmetic turns, as u32 bit patterns:
+# 0, 1, 2, p - 2, p - 1, p, p + 1, 2p - 1, 2p, 2^31 - 1, 2^31 (the first
+# negative int32), 2^31 + 1, R (one in Montgomery form), 0x77FFFFFF,
+# 2^32 - 2, 2^32 - 1
+FIELD_EDGE = [0, 1, 2, P - 2, P - 1, P, P + 1, 2 * P - 1, 2 * P,
+              (1 << 31) - 1, 1 << 31, (1 << 31) + 1, 268435454, 0x77FFFFFF,
+              (1 << 32) - 2, (1 << 32) - 1]
+
+
+def field_phase(dev, check) -> None:
+    """(field): each field kernel of csrc/field.cu held against its plain
+    version on the card, word for word (`check(name, got, want, what)`
+    raises on a difference): field_elementwise's every op code, then
+    field_ext_mul, field_inv and field_ext_inv, on random words from a
+    numpy seed at 2^20 and 2^21 elements (below p, and any u32 bit
+    pattern), on every pair of FIELD_EDGE words, and on the broadcast
+    patterns of the prover's calls."""
+    import torch
+    from valida_tpu_torch.field import babybear as bb
+    from valida_tpu_torch.field import ext as extf
+
+    rng = np.random.default_rng(2)
+
+    def words(shape, top=1 << 32):
+        return torch.from_numpy(rng.integers(0, top, shape, dtype=np.uint32)
+                                .view(np.int32)).to(dev)
+
+    binary = {name: (getattr(bb, name), getattr(bb, f"{name}_plain"))
+              for name in ("mul", "add", "sub")}
+    unary = {name: (getattr(bb, name), getattr(bb, f"{name}_plain"))
+             for name in ("neg", "double", "to_monty", "from_monty",
+                          "from_wrapped_u32")}
+    edge = torch.from_numpy(np.array(FIELD_EDGE, dtype=np.uint32)
+                            .view(np.int32)).to(dev)
+    n_e = edge.numel()
+    pairs = (edge.repeat_interleave(n_e), edge.repeat(n_e))
+    k, q = 51, 1 << 15
+    cases = {  # what -> (a, b)
+        "edge word pairs": pairs,
+        "2^20 words below p": (words(1 << 20, P), words(1 << 20, P)),
+        "2^21 words below p": (words(1 << 21, P), words(1 << 21, P)),
+        "2^21 u32 words": (words(1 << 21), words(1 << 21)),
+        "[K, Q] x [K, 1] (air/builder.py)": (words((k, q), P),
+                                             words((k, 1), P)),
+        "[n, 1] x [1, 5] (air/lookup.py)": (words((1 << 20, 1), P),
+                                            words((1, 5), P)),
+        "0-d tensor": (words((), P), words((1 << 20, 3), P)),
+        "scalar word": (words((1 << 20, 5), P), 123456789),
+        "strided view": (words((1 << 12, 256), P)[1::2, ::3],
+                         words((1 << 11, 86), P)),
+        "a column": (words((1 << 20, 4), P)[:, 2], words(1 << 20, P)),
+        "transposed": (words((512, 2048), P).t(), words((2048, 512), P)),
+        "empty": (words((0, 5)), words((0, 5))),
+    }
+    for what, (a, b) in cases.items():
+        for name, (fn, plain) in binary.items():
+            check("field_elementwise", fn(a, b), plain(a, b),
+                  f"{name}, {what}")
+        for name, (fn, plain) in unary.items():
+            check("field_elementwise", fn(a), plain(a), f"{name}, {what}")
+    log("field_elementwise == plain for mul, add, sub, neg, double, "
+        "to_monty, from_monty, from_wrapped_u32 on: " + "; ".join(cases))
+
+    def ext(shape, top=P):
+        return words(tuple(shape) + (5,), top)
+
+    e_pairs = (pairs[0][:, None].expand(-1, 5).contiguous(),
+               pairs[1][:, None].expand(-1, 5).contiguous())
+    e_cases = {
+        "edge words in every coefficient": e_pairs,
+        "2^20 elements below p": (ext([1 << 20]), ext([1 << 20])),
+        "2^21 elements below p": (ext([1 << 21]), ext([1 << 21])),
+        "2^21 elements of u32 words": (ext([1 << 21], 1 << 32),
+                                       ext([1 << 21], 1 << 32)),
+        "[n, 5] x [5]": (ext([1 << 20]), ext([])),
+        "[n, 1, 5] x [1, m, 5]": (ext([1 << 10, 1]), ext([1, 1 << 10])),
+        "strided view": (ext([1 << 20, 2])[:, 1], ext([1 << 20])),
+        "empty": (ext([0]), ext([0])),
+    }
+    for what, (a, b) in e_cases.items():
+        check("field_ext_mul", extf.ext_mul(a, b), extf.ext_mul_plain(a, b),
+              what)
+        check("field_ext_inv", extf.ext_inv(a), extf.ext_inv_plain(a), what)
+        check("field_inv", bb.inv(a[..., 1]), bb.inv_plain(a[..., 1]), what)
+    zeros = torch.zeros(1 << 10, 5, dtype=torch.int32, device=dev)
+    check("field_ext_inv", extf.ext_inv(zeros), zeros, "zero elements")
+    check("field_inv", bb.inv(zeros), zeros, "zero words")
+    x = words(1 << 21, P)
+    check("field_inv", bb.inv_batch(x), bb.inv_batch_plain(x),
+          "inv_batch, 2^21 words below p")
+    log("field_ext_mul, field_ext_inv, field_inv == plain on: "
+        + "; ".join(e_cases) + "; zeros; inv_batch == its product tree")
+
+
 def run_cli(log) -> dict:
     """Path (cli): `python -m valida_tpu_torch.tooling.cli` asm, run,
     prove and verify of CLI_PROGRAM with CLI_ADVICE, each action in a
@@ -842,6 +1002,7 @@ def main() -> int:
     from valida_tpu_torch.crypto import keccak, merkle
     from valida_tpu_torch.crypto import poseidon2 as p2
     from valida_tpu_torch.field import babybear as bb
+    from valida_tpu_torch.field import ext as extf
     from valida_tpu_torch.core.config import default_config
     from valida_tpu_torch.crypto.challenger import DuplexChallenger
     from valida_tpu_torch.chips.alu import _ops_to_arrays
@@ -1026,6 +1187,12 @@ def main() -> int:
     log("poseidon2 == plain at n_words {1,7,8,9,10,16,51,128,179} x batch "
         "{1,3,127,128,129,2047,2^16}, with words 0, p-1, p, 2p-1, 2p, 2^32-1")
 
+    # (field): the field kernels against their plain versions, word for
+    # word, on words from a numpy seed
+    t0 = time.perf_counter()
+    field_phase(dev, check)
+    log(f"(field) took {time.perf_counter() - t0:.1f} s")
+
     # 4. the main path: three commits, the launch counters around each.
     # Every kernel call is recorded (its input, and its output as the kernel
     # left it) and held against the plain version on the same input as it
@@ -1056,14 +1223,59 @@ def main() -> int:
     # the rest (the first, the ninth, ...)
     SMALL_HASH = 1 << 12
     sample_small = [False]
+    field_seen = {}
+    # the field kernels' plain versions, by field_elementwise's op code
+    # (csrc/field.cuh `Op`) or by kernel
+    field_plain = {
+        **{code: getattr(bb, f"{op}_plain") for op, code in bb.OPS.items()},
+        "field_ext_mul": extf.ext_mul_plain, "field_inv": bb.inv_plain,
+        "field_ext_inv": extf.ext_inv_plain}
 
-    def recording_launch(lib_name, fn, x, y, *rest):
+    def held_field(name, args):
+        """A field kernel's output against its plain version on the same
+        operands (the launch's arguments after the entry's name), in row
+        blocks of at most 2^24 words: max |diff|, and the output."""
+        if name == "field_elementwise":
+            op, a, b, a_word, b_word, out = args[:6]
+            fn = field_plain[op]
+            ops = [a_word if a is None else a]
+            if op < bb.OPS["neg"]:  # the binary ops
+                ops.append(b_word if b is None else b)
+        else:
+            out, fn, ops = args[-2], field_plain[name], list(args[:-2])
+        if out.dim() == 0 or out.numel() <= 1 << 24:
+            return err(out, fn(*ops)), out
+        ops = [x.expand(out.shape) if isinstance(x, torch.Tensor) else x
+               for x in ops]
+        rows = max(1, (1 << 24) // (out.numel() // out.shape[0]))
+        return max(err(out[i:i + rows], fn(*[
+            x[i:i + rows] if isinstance(x, torch.Tensor) else x
+            for x in ops])) for i in range(0, out.shape[0], rows)), out
+
+    def recording_launch(lib_name, fn, *args):
         if torch.cuda.is_current_stream_capturing():
             # a launch being captured into a graph runs at the graph's
             # replays: the stage's eager first run was recorded instead
-            launch(lib_name, fn, x, y, *rest)
+            launch(lib_name, fn, *args)
             return
         name = fn.removesuffix("_launch")
+        if lib_name == "field":
+            # every FIELD_SAMPLE-th call of each field kernel is held
+            device_runs[name] += 1
+            launch(lib_name, fn, *args)
+            seen = field_seen[name] = field_seen.get(name, 0) + 1
+            if seen % FIELD_SAMPLE != 1:
+                passed_over[name] = passed_over.get(name, 0) + 1
+                return
+            e, out = held_field(name, args)
+            max_err[name] = max(max_err[name], e)
+            if e != 0:
+                raise RuntimeError(f"{name} differs from its plain version "
+                                   f"at {recording[0]} output "
+                                   f"{tuple(out.shape)}: max |diff| = {e}")
+            calls.append((name, tuple(out.shape)))
+            return
+        x, y, *rest = args
         device_runs[name] += (len(radix_ntt._pass_levels(rest[1], rest[3]))
                               if name.startswith("ntt") else 1)
         if (sample_small[0] and name in ("poseidon2", "keccak256")
@@ -1088,6 +1300,7 @@ def main() -> int:
         recording[0] = what
         calls.clear()
         small_seen.clear()
+        field_seen.clear()
         passed_over.clear()
         sample_small[0] = sample
         torch.cuda.synchronize()
@@ -1122,8 +1335,11 @@ def main() -> int:
         log(f"{what}: {len(calls)} of {sum(counts.values())} kernel calls "
             f"held against plain, all equal"
             + (f" (passed over: {passed_over})" if passed_over else "")
-            + ", at " + "; ".join(f"{k} {sorted(set(v))}"
-                                  for k, v in sorted(seen.items())))
+            + ", at " + "; ".join(
+                f"{k} {len(set(v))} shapes, up to "
+                f"{max(v, key=lambda s: int(np.prod(s)))}" if k in FIELD
+                else f"{k} {sorted(set(v))}"
+                for k, v in sorted(seen.items())))
         calls.clear()
         return out, counts
 
@@ -1469,9 +1685,29 @@ def main() -> int:
     # 5. timings at the main path's shapes
     kernels = []
 
-    def report(name, fn, plain_fn, nbytes, ops, iters, plain_iters):
-        ms = cuda_ms(fn, iters)
-        plain_ms = cuda_ms(plain_fn, plain_iters)
+    def graph_ms(fn, sets, iters):
+        """Device ms of one fn(*operands) call: max(iters, len(sets)) calls,
+        the k-th on sets[k % len(sets)], captured into a CUDA graph and
+        replayed, so that the host's cost of enqueueing a kernel shorter
+        than it (the field kernels at 2^21 words) is left out.  The sets
+        hold more than L2 together and every call's output is kept, so each
+        call reads and writes device memory, as on the main path."""
+        fn(*sets[0])
+        torch.cuda.synchronize()
+        calls = max(iters, len(sets))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [fn(*sets[k % len(sets)]) for k in range(calls)]
+        ms = cuda_ms(graph.replay, 3) / calls
+        del graph, outs
+        torch.cuda.synchronize()
+        return ms
+
+    def report(name, fn, plain_fn, nbytes, ops, iters, plain_iters,
+               timer=None):
+        timer = timer or cuda_ms
+        ms = timer(fn, iters)
+        plain_ms = timer(plain_fn, plain_iters)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / int32_ops_per_s * 1e3
         src, replaces = SOURCES[name]
@@ -1546,6 +1782,54 @@ def main() -> int:
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
     del w, w16
 
+    # the field kernels at the main path's shapes: 2^21 words (the
+    # quotient's domain of a 2^20-row trace at blowup 2), 2^21 extension
+    # elements.  A call there is shorter than the host's enqueue of it, so
+    # kernel and plain version are timed as CUDA graph replays (the eager
+    # per-call time prints beside), each call on one of a rotation of
+    # operand sets that hold L2_ROTATION bytes together.
+    # field_elementwise's row is its product; its other ops print beside.
+    # The plain version of field_inv is inv_batch's product tree, which the
+    # main path ran before the kernels (square and multiply prints beside)
+    n = 1 << 21
+
+    def operand_sets(*shapes):
+        set_bytes = sum(4 * int(np.prod(shape)) for shape in shapes)
+        return [tuple(rand_field(shape) for shape in shapes)
+                for _ in range(-(-L2_ROTATION // set_bytes))]
+
+    base1, base2 = operand_sets((n,)), operand_sets((n,), (n,))
+    ext1, ext2 = operand_sets((n, 5)), operand_sets((n, 5), (n, 5))
+    for name, fn, plain_fn, sets, nbytes, plain_iters in [
+            ("field_elementwise", bb.mul, bb.mul_plain, base2, 3 * 4 * n, 5),
+            ("field_inv", bb.inv, bb.inv_batch_plain, base1, 2 * 4 * n, 3),
+            ("field_ext_mul", extf.ext_mul, extf.ext_mul_plain, ext2,
+             3 * 20 * n, 3),
+            ("field_ext_inv", extf.ext_inv, extf.ext_inv_plain, ext1,
+             2 * 20 * n, 2)]:
+        report(name, fn, plain_fn, nbytes, n * FIELD_OPS[name], 20,
+               plain_iters,
+               timer=lambda f, iters, sets=sets: graph_ms(f, sets, iters))
+        log(f"{name}: eager, {cuda_ms(lambda: fn(*sets[0]), 20):.4f} "
+            f"ms/call (the host's enqueue) against {kernels[-1]['ms']:.4f} "
+            f"in a graph ({len(sets)} operand sets)")
+    for what, name, sets, scalar in [
+            ("add", "add", base2, ()), ("sub", "sub", base2, ()),
+            ("neg", "neg", base1, ()), ("to_monty", "to_monty", base1, ()),
+            ("from_monty", "from_monty", base1, ()),
+            ("from_wrapped_u32", "from_wrapped_u32", base1, ()),
+            ("mul by a scalar word", "mul", base1, (123456789,))]:
+        fn, plain_fn = getattr(bb, name), getattr(bb, f"{name}_plain")
+        ms = graph_ms(lambda *x: fn(*x, *scalar), sets, 20)
+        plain_ms = graph_ms(lambda *x: plain_fn(*x, *scalar), sets, 5)
+        words_moved = n * (1 + len(sets[0]))
+        log(f"field_elementwise {what} at 2^21 words (graph replays): "
+            f"{ms:.4f} ms/call, plain {plain_ms:.4f} ms, bound "
+            f"{4 * words_moved / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    log(f"field_inv's square-and-multiply plain version (inv_plain) at 2^21 "
+        f"words: {cuda_ms(lambda: bb.inv_plain(base1[0][0]), 2):.4f} ms")
+    del base1, base2, ext1, ext2
+
     # NTT butterflies/s at 2^19 x 128, as bench.py counts them
     n, cols = 1 << 19, 128
     x = rand_field((n, cols))
@@ -1600,16 +1884,21 @@ def main() -> int:
             if e.device_type == DeviceType.CUDA and e.name not in host_names:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
                 n_ops += 1
+        def ours_of(name):
+            """Which of our kernels a device kernel's name is (the field
+            kernels are templates: `field_inv_kernel<unsigned int>(`)."""
+            return [k for k in SOURCES if f"{k}_kernel(" in name
+                    or f"{k}_kernel<" in name]
+
         ours = {k: sum(t for name, t in by_name.items()
-                       if f"{k}_kernel(" in name) for k in SOURCES}
+                       if k in ours_of(name)) for k in SOURCES}
         # the device's kernel runs of each of ours (an NTT call runs one
         # per pass), beside the launches the wrappers and replays counted
         kernel_runs = {k: 0 for k in SOURCES}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and e.name not in host_names:
-                for k in SOURCES:
-                    if f"{k}_kernel(" in e.name:
-                        kernel_runs[k] += 1
+                for k in ours_of(e.name):
+                    kernel_runs[k] += 1
         busy = sum(by_name.values())
         if busy <= 0:
             raise RuntimeError(f"{what}: the profile shows no device time")
@@ -1768,6 +2057,12 @@ def main() -> int:
     n_calls, launches["j warmup"] = run_recorded(
         f"{what} warmup_jit", *BASIC_KERNELS,
         lambda: jit_prover.warmup_jit(machine, cfg), sample=True)
+    # the warm-up's eager first runs: their counted launches and kernel
+    # runs (its graphs' one replay each counted apart), which a warm
+    # prove's replays must repeat for the field kernels
+    j_eager = {name: n - _build.GRAPH_LAUNCHES[name]
+               for name, n in launches["j warmup"].items()}
+    j_eager_runs = dict(device_runs)
     log(f"{what}: warmup_jit (kernel calls recorded) in "
         f"{time.perf_counter() - t0:.1f} s: {n_calls} stage calls, "
         f"{jit_prover.stats['captures']} graphs captured; memory peak "
@@ -1796,22 +2091,37 @@ def main() -> int:
         what, dict(machine=machine, cfg=cfg),
         prove=lambda: jit_prover.prove_jit(machine, cfg))
     # the graphs hold what the eager prover launches: the profiled staged
-    # prove ran as many of each of our kernels on the device as (k)'s
-    # recorded eager prove of the same machine ran (an NTT call one run a
-    # pass); its graph replays counted as many launches as (k)'s wrappers
-    # did; and a Keccak launch is one kernel run on the device
-    if (timed_j["kernel_runs"] != k["device_runs"]
-            or timed_j["launches"] != k["launches"]
+    # prove ran as many of each of our NTT and hash kernels on the device
+    # as (k)'s recorded eager prove of the same machine ran (an NTT call one
+    # run a pass); its graph replays counted as many launches as (k)'s
+    # wrappers did; a Keccak launch is one kernel run on the device.  The
+    # field kernels run in the debug checks too, which (k) runs and (j)
+    # does not: theirs are held to (j)'s own eager first runs, as (jm)'s
+    def part(d, names):
+        return {name: d[name] for name in names}
+
+    hashes = [name for name in SOURCES if name not in FIELD]
+    if (part(timed_j["kernel_runs"], hashes) != part(k["device_runs"], hashes)
+            or part(timed_j["launches"], hashes)
+            != part(k["launches"], hashes)
+            or part(timed_j["kernel_runs"], FIELD)
+            != part(j_eager_runs, FIELD)
+            or part(timed_j["launches"], FIELD) != part(j_eager, FIELD)
             or timed_j["kernel_runs"]["keccak256"]
             != timed_j["launches"]["keccak256"]
             or not all(timed_j["kernel_runs"][n] for n in BASIC_KERNELS[0])):
         raise RuntimeError(
             f"{what}: kernel runs {timed_j['kernel_runs']} on the device for "
             f"launches {timed_j['launches']}; the eager prove's "
-            f"{k['device_runs']} and {k['launches']}")
-    log(f"{what}: our kernels' runs on the device in a warm prove equal the "
-        f"eager prove's {k['device_runs']}, and its counted launches "
-        f"the eager prove's {k['launches']}")
+            f"{k['device_runs']} and {k['launches']}; the field kernels' in "
+            f"its own eager first runs {part(j_eager_runs, FIELD)} and "
+            f"{part(j_eager, FIELD)}")
+    log(f"{what}: our NTT and hash kernels' runs on the device in a warm "
+        f"prove equal the eager prove's {part(k['device_runs'], hashes)}, "
+        f"and its counted launches the eager prove's "
+        f"{part(k['launches'], hashes)}; the field kernels' runs and "
+        f"launches its own eager first runs' {part(j_eager_runs, FIELD)} "
+        f"and {part(j_eager, FIELD)}")
     log("(j) beside (k), this call: " + "; ".join(
         f"{key} {timed_j[key]} against {timed_k[key]}"
         for key in ("median_ms", "best_ms", "peak_allocated_gib",

@@ -154,3 +154,12 @@ def test_eval_at_ext_point_and_mod_sum(n, cols):
         np.testing.assert_array_equal(
             to_numpy(nttm._mod_sum(from_reference(coeffs), axis)),
             rntt._mod_sum(coeffs, axis))
+
+
+def test_ext_scalar_matches_reference():
+    """`ExtScalar`, the host scalar's type: a 5-tuple of canonical ints."""
+    assert extf.ExtScalar is rext.ExtScalar is tuple
+    a, b = _scalar(11), _scalar(12)
+    for got in (extf.e_mul(a, b), extf.e_inv(a), extf.e_add(a, b)):
+        assert isinstance(got, extf.ExtScalar) and len(got) == 5
+        assert all(0 <= x < P for x in got)

@@ -400,3 +400,29 @@ def test_cli_prove_jit_writes_the_same_proof(tmp_path):
                          "--no-debug-checks"] + flags) == 0
         proofs.append(out.read_bytes())
     assert proofs[0] == proofs[1]
+
+
+def test_transfer_stats(jit_proofs, monkeypatch):
+    """`transfer_stats` counts the bytes of every host array a prove
+    uploads, the traces and trace inputs also under "trace_bytes", and a
+    prove starts it at 0 (the JAX package's `transfer_stats`)."""
+    m, cfg, blob, _keys = jit_proofs["fib"]
+    uploads = []
+
+    def counted(arr, device="cpu"):
+        t = convert.from_reference(arr, device)
+        uploads.append(t.nbytes)
+        return t
+
+    monkeypatch.setattr(jp, "from_reference", counted)
+    trace_bytes = 0
+    for c in m.chips():
+        dti = c.device_trace_inputs(m)
+        arrays = dti[0] if dti is not None else [c.generate_trace(m)]
+        trace_bytes += sum(4 * np.asarray(a).size for a in arrays)
+    for _ in range(2):
+        uploads.clear()
+        assert serialize_proof(jp.prove_jit(m, cfg)) == blob
+        assert jp.transfer_stats == {"bytes": sum(uploads),
+                                     "trace_bytes": trace_bytes}
+        assert 0 < trace_bytes < sum(uploads)

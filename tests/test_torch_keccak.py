@@ -99,3 +99,8 @@ def test_plain_matches_keccak_pallas_body(monkeypatch):
     np.testing.assert_array_equal(want, ref.keccak256_words(msgs))
     got = to_numpy(keccak.keccak256_words(from_reference(msgs)))
     np.testing.assert_array_equal(got, want)
+
+
+def test_rate_matches_reference():
+    assert (keccak.RATE_BYTES, keccak.RATE_WORDS, keccak.DIGEST_WORDS) == (
+        ref.RATE_BYTES, ref.RATE_WORDS, ref.DIGEST_WORDS) == (136, 34, 8)

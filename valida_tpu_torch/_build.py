@@ -1,10 +1,12 @@
 """Build the CUDA sources in csrc/ with nvcc and load them through ctypes.
 
 Each csrc/<name>.cu has a plain C interface: every pointer and the stream
-are `void*`, every size an `int`, and each entry returns
+are `void*`, every size an `int` (csrc/field.cu takes its sizes and
+strides as a host array of int64 behind a pointer), and each entry returns
 `cudaGetLastError()` as an int.  The shared library goes to
-build/valida_tpu_torch/ beside the package, named by a hash of its source
-and flags, so a changed source is rebuilt and a stale one never loads.
+build/valida_tpu_torch/ beside the package, named by a hash of its source,
+the csrc headers and the flags, so a changed source is rebuilt and a stale
+one never loads.
 Nothing is built or loaded when the module is imported: the first launch
 builds, or `build_all()` builds every source at once, one nvcc each, all
 started together.
@@ -13,6 +15,7 @@ started together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,6 +44,13 @@ SIGNATURES = {
         "poseidon2_launch": [_P, _P, _I, _I, _P],
         "poseidon2_set_constants": [_P, _I],  # host words, count: no stream
     },
+    # the field kernels (K1-K4): operands, output, host layout, stream
+    "field": {
+        "field_elementwise_launch": [_I, _P, _P, _I, _I, _P, _P, _P],
+        "field_ext_mul_launch": [_P, _P, _P, _P, _P],
+        "field_inv_launch": [_P, _P, _P, _P],
+        "field_ext_inv_launch": [_P, _P, _P, _P],
+    },
 }
 
 # launches of each kernel, counted by its wrapper where it launches
@@ -49,7 +59,8 @@ SIGNATURES = {
 # (machine/jit_prover.py) adds the launches its graph holds here and in
 # GRAPH_LAUNCHES.
 LAUNCHES = {"ntt_dif_whole": 0, "ntt_dif_ragged": 0, "keccak256": 0,
-            "poseidon2": 0}
+            "poseidon2": 0, "field_elementwise": 0, "field_ext_mul": 0,
+            "field_inv": 0, "field_ext_inv": 0}
 CAPTURED = dict.fromkeys(LAUNCHES, 0)
 GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
@@ -62,9 +73,14 @@ def reset_launches() -> None:
         GRAPH_LAUNCHES[k] = 0
 
 
+@functools.cache
+def _cuda() -> bool:
+    return torch.cuda.is_available()
+
+
 def count_launch(name: str) -> None:
     """Count one launch of kernel `name` (see LAUNCHES)."""
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+    if _cuda() and torch.cuda.is_current_stream_capturing():
         CAPTURED[name] += 1
     else:
         LAUNCHES[name] += 1
@@ -83,7 +99,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -163,9 +163,11 @@ def le_byte(values: torch.Tensor, i: int) -> torch.Tensor:
 
 
 def canon_inv(x: torch.Tensor) -> torch.Tensor:
-    """x^-1 mod p (0 -> 0) of canonical values, through the batched
+    """x^-1 mod p (0 -> 0) of canonical values (int64, below p, so the
+    field kernels take them as int32 words unchanged), through the batched
     inversion (inverses are unique, so the JAX package's words)."""
-    return bb.from_monty(bb.inv_batch(bb.to_monty(x))).to(torch.int64)
+    return bb.from_monty(bb.inv_batch(bb.to_monty(x.to(torch.int32)))).to(
+        torch.int64)
 
 
 class IndexAllocator:

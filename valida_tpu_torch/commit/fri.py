@@ -218,7 +218,9 @@ def grind_device(challenger, bits: int, device="cuda") -> int:
     mask = (1 << bits) - 1
 
     def attempt(start: int, batch: int) -> int:
-        cand = start + torch.arange(batch, dtype=torch.int64, device=device)
+        # below p + 2^16 < 2^31: int32 words, as the field kernels take them
+        cand = torch.arange(start, start + batch, dtype=torch.int32,
+                            device=device)
         st = base_m.repeat(batch, 1)
         st[:, k] = bb.to_monty(cand)
         out = poseidon.permute_device(st)

@@ -22,7 +22,8 @@ import torch
 from .. import _build
 from ..convert import to_int32_bits, u32_as_int64
 
-RATE_WORDS = 34  # u32 words per block (136 bytes)
+RATE_BYTES = 136
+RATE_WORDS = RATE_BYTES // 4  # u32 words per block
 DIGEST_WORDS = 8
 
 _RC64 = [

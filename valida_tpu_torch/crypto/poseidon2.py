@@ -85,9 +85,9 @@ def _consts(device):
 
 
 def _sbox7(x):
-    x2 = bb.mul(x, x)
-    x4 = bb.mul(x2, x2)
-    return bb.mul(bb.mul(x4, x2), x)
+    x2 = bb.mul_plain(x, x)
+    x4 = bb.mul_plain(x2, x2)
+    return bb.mul_plain(bb.mul_plain(x4, x2), x)
 
 
 def _external_linear(state):
@@ -109,14 +109,14 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     state = _external_linear(state)
     half = EXTERNAL_ROUNDS // 2
     for r in range(half):
-        state = _external_linear(_sbox7(bb.add(state, ext_c[r])))
+        state = _external_linear(_sbox7(bb.add_plain(state, ext_c[r])))
     for r in range(INTERNAL_ROUNDS):
-        s0 = _sbox7(bb.add(state[..., 0], int_c[r]))
+        s0 = _sbox7(bb.add_plain(state[..., 0], int_c[r]))
         state = torch.cat([s0[..., None], state[..., 1:]], dim=-1)
         total = state.sum(dim=-1, dtype=torch.int64) % bb.P
-        state = bb.add(bb.mul(state, diag), total[..., None])
+        state = bb.add_plain(bb.mul_plain(state, diag), total[..., None])
     for r in range(half, EXTERNAL_ROUNDS):
-        state = _external_linear(_sbox7(bb.add(state, ext_c[r])))
+        state = _external_linear(_sbox7(bb.add_plain(state, ext_c[r])))
     return state
 
 
@@ -125,12 +125,12 @@ def hash_words_plain(words: torch.Tensor) -> torch.Tensor:
     n, w = words.shape
     state = torch.zeros(n, WIDTH, dtype=torch.int32, device=words.device)
     for off in range(0, w, RATE):
-        block = bb.from_wrapped_u32(words[:, off:off + RATE])
+        block = bb.from_wrapped_u32_plain(words[:, off:off + RATE])
         cw = block.shape[1]
-        state = torch.cat([bb.add(state[:, :cw], block), state[:, cw:]],
+        state = torch.cat([bb.add_plain(state[:, :cw], block), state[:, cw:]],
                           dim=-1)
         state = permute(state)
-    return bb.from_monty(state[:, :RATE])
+    return bb.from_monty_plain(state[:, :RATE])
 
 
 # ---------------------------------------------------------------------------

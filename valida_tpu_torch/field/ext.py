@@ -2,7 +2,10 @@
 
 Counterpart of valida_tpu/field/ext.py.  On the device an element is a
 trailing axis of 5 int32 words in Montgomery form, the coefficient of x^0
-first.  Host scalars are 5-tuples of canonical python ints.
+first.  Host scalars are 5-tuples of canonical python ints (`ExtScalar`).
+`ext_mul` and `ext_inv` run their plain versions on CPU tensors and
+csrc/field.cu's kernels on the card; the other operations reach the
+kernels through babybear's.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import _build
 from ..convert import from_reference, index_tensor, table
 from . import babybear as bb
 
@@ -55,11 +59,11 @@ def _em_factor() -> np.ndarray:
     return np.array([2 if o else 1 for o in _EM_OVF], dtype=np.uint32)
 
 
-def ext_mul(a, b):
+def ext_mul_plain(a, b):
     """Product modulo x^5 - W: c_k = sum_{i+j=k} a_i b_j + W sum_{i+j=k+5}
     a_i b_j.  Each of the 25 products is reduced below p, so a doubled
     sum of five stays below 2^35 and the Montgomery factor R^-1 is taken
-    once per c_k."""
+    once per c_k.  Runs on any device."""
     a, b = torch.broadcast_tensors(a, b)
     dev = a.device
     prod = (a.index_select(-1, index_tensor(_EM_I, dev)).to(torch.int64)
@@ -68,6 +72,39 @@ def ext_mul(a, b):
     prod = prod * table(_em_factor, device=prod.device)
     c = prod.reshape(prod.shape[:-1] + (D, D)).sum(dim=-1)
     return (c % bb.P * bb.R_INV % bb.P).to(torch.int32)
+
+
+def _ext_operand(t, what):
+    if t.dim() == 0 or t.shape[-1] != D:
+        raise ValueError(f"{what}: expected a last axis of {D} "
+                         f"coefficients, got shape {tuple(t.shape)}")
+    return t.shape[:-1]
+
+
+def ext_mul(a, b):
+    """Product modulo x^5 - W of ext arrays [..., 5] (leading dims
+    broadcast): `ext_mul_plain` on the CPU, csrc/field.cu's
+    field_ext_mul (K2) on the card."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return ext_mul_plain(a, b)
+    return _ext_mul_kernel(a, b)
+
+
+def _ext_mul_kernel(a, b):
+    what = "field_ext_mul"
+    bb._check(a, a.device, what)
+    bb._check(b, a.device, what)
+    la, lb = _ext_operand(a, what), _ext_operand(b, what)
+    lead = bb._broadcast_shape(la, lb)
+    out = torch.empty(tuple(lead) + (D,), dtype=torch.int32, device=a.device)
+    n = out.numel() // D
+    if n:
+        sa, sb = a.stride(), b.stride()
+        layout = bb._layout(what, n, lead, bb._bstrides(la, sa[:-1], lead),
+                            bb._bstrides(lb, sb[:-1], lead), sa[-1], sb[-1])
+        _build.launch("field", "field_ext_mul_launch", a, b, out, layout)
+        _build.count_launch("field_ext_mul")
+    return out
 
 
 def ext_mul_base(a, s):
@@ -111,16 +148,41 @@ def frobenius(a):
     return bb.mul(a, table(_frob_monty, device=a.device))
 
 
-def ext_inv(a):
+def ext_inv_plain(a):
     """a^-1 = (a^p a^(p^2) a^(p^3) a^(p^4)) / norm(a): the product of the
-    four conjugates, over the norm, which lies in the base field."""
-    conj = frobenius(a)
+    four conjugates, over the norm, which lies in the base field; 0 -> 0.
+    Plain versions throughout, so it runs on any device."""
+    frob = table(_frob_monty, device=a.device)
+    conj = bb.mul_plain(a, frob)
     r = conj
     for _ in range(3):
-        conj = frobenius(conj)
-        r = ext_mul(r, conj)
-    norm0 = ext_mul(a, r)[..., 0]
-    return ext_mul_base(r, bb.inv_batch(norm0))
+        conj = bb.mul_plain(conj, frob)
+        r = ext_mul_plain(r, conj)
+    norm0 = ext_mul_plain(a, r)[..., 0]
+    return bb.mul_plain(r, bb.inv_batch_plain(norm0)[..., None])
+
+
+def ext_inv(a):
+    """Inverse of each element of an ext array [..., 5], 0 -> 0:
+    `ext_inv_plain` on the CPU, csrc/field.cu's field_ext_inv (K4, one
+    element a thread) on the card."""
+    if a.device.type == "cpu":
+        return ext_inv_plain(a)
+    return _ext_inv_kernel(a)
+
+
+def _ext_inv_kernel(a):
+    what = "field_ext_inv"
+    bb._check(a, a.device, what)
+    lead = _ext_operand(a, what)
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    n = out.numel() // D
+    if n:
+        st = a.stride()
+        layout = bb._layout(what, n, lead, st[:-1], (0,) * len(lead), st[-1])
+        _build.launch("field", "field_ext_inv_launch", a, out, layout)
+        _build.count_launch("field_ext_inv")
+    return out
 
 
 def ext_from_base(a):
@@ -150,6 +212,8 @@ def ext_one(device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Host side (tuples of canonical ints)
 # ---------------------------------------------------------------------------
+
+ExtScalar = tuple  # length-5 tuple of ints in [0, p)
 
 E_ZERO = (0, 0, 0, 0, 0)
 E_ONE = (1, 0, 0, 0, 0)

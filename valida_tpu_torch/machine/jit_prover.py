@@ -131,6 +131,21 @@ from ..utils import stage
 PERM_CHUNK = QUOTIENT_CHUNK = OPEN_CHUNK = REDUCED_CHUNK = 0
 TREE_FUSE_MAX = 1 << 13
 
+# host->device uploads of the current prove (reset at each prove_jit): the
+# bytes of every host array it uploads, and of the traces and trace inputs
+# among them under "trace_bytes"
+transfer_stats = {"bytes": 0, "trace_bytes": 0}
+
+
+def _upload(arr, device, trace: bool = False) -> torch.Tensor:
+    """`from_reference(arr, device)`, counted in transfer_stats."""
+    t = from_reference(arr, device)
+    transfer_stats["bytes"] += t.nbytes
+    if trace:
+        transfer_stats["trace_bytes"] += t.nbytes
+    return t
+
+
 # ---------------------------------------------------------------------------
 # the stage mechanism
 # ---------------------------------------------------------------------------
@@ -384,8 +399,7 @@ class DeviceTree:
         paths [q, log_max, 8]), left on the device for one batched fetch
         of all trees (`_fetch_all`)."""
         dev = self.mats[0].device
-        idx = from_reference(np.asarray(indices, dtype=np.uint32),
-                             dev).long()
+        idx = _upload(np.asarray(indices, dtype=np.uint32), dev).long()
         if self.log_max == 0:
             return ([m.index_select(0, idx * 0) for m in self.mats],
                     np.zeros((len(indices), 0, 8), dtype=np.uint32))
@@ -1298,6 +1312,7 @@ def prove_jit(machine, config, mesh=None, row_axis: str = "sp"
 
 def _prove(machine, config, mk) -> MachineProof:
     _begin_prove()
+    transfer_stats["bytes"] = transfer_stats["trace_bytes"] = 0
     chips = machine.chips()
     pcs = config.pcs
     fri_config = pcs.config
@@ -1314,8 +1329,7 @@ def _prove(machine, config, mk) -> MachineProof:
         if p is not None:
             prep_indices[ci] = len(prep_list)
             prep_host.append(np.asarray(p, dtype=np.uint32))
-            prep_list.append(from_reference(_host_block(prep_host[-1], mk),
-                                            dev))
+            prep_list.append(_upload(_host_block(prep_host[-1], mk), dev))
     prep_shapes = [tuple(int(x) for x in p.shape) for p in prep_host]
     heights = []
 
@@ -1324,12 +1338,12 @@ def _prove(machine, config, mk) -> MachineProof:
         if dti is None:
             t = np.asarray(c.generate_trace(machine), dtype=np.uint32)
             heights.append(int(t.shape[0]))
-            return from_reference(_host_block(t, mk), dev)
+            return _upload(_host_block(t, mk), dev, trace=True)
         inputs, meta = dti
         heights.append(int(meta[1]))
         fn = _trace_stage(machine, c, tuple(tuple(x.shape) for x in inputs),
                           meta, mk)
-        return fn(*[from_reference(x, dev) for x in inputs])
+        return fn(*[_upload(x, dev, trace=True) for x in inputs])
 
     with stage("generate main traces"):
         main_traces = [one_trace(c) for c in chips]
@@ -1377,7 +1391,7 @@ def _prove(machine, config, mk) -> MachineProof:
     challenger.observe_digest(main_tree.root)
 
     perm_challenges = [challenger.sample_ext() for _ in range(3)]
-    ch_arr = from_reference(np.array(perm_challenges, dtype=np.uint32), dev)
+    ch_arr = _upload(np.array(perm_challenges, dtype=np.uint32), dev)
 
     def perm_one(ci, c, t):
         w, ld = main_shapes[ci][1], log_degrees[ci]
@@ -1386,7 +1400,7 @@ def _prove(machine, config, mk) -> MachineProof:
         if mk is None:
             prep = prep_list[prep_indices[ci]]
         else:  # zero-padded to the trace's rows before it is sharded
-            prep = from_reference(_host_block(_padded_host(
+            prep = _upload(_host_block(_padded_host(
                 prep_host[prep_indices[ci]], 1 << ld), mk), dev)
         return _perm_stage(machine, c, ld, w, (1 << ld, int(prep.shape[1]))
                            if mk is not None else _shape(prep),
@@ -1405,7 +1419,7 @@ def _prove(machine, config, mk) -> MachineProof:
     cumulative_sums = _to_ext_tuples(cs_host)
 
     alpha = challenger.sample_ext()
-    alpha_arr = from_reference(np.array(alpha, dtype=np.uint32), dev)
+    alpha_arr = _upload(np.array(alpha, dtype=np.uint32), dev)
 
     if config.debug_checks:
         with stage("check constraints"):
@@ -1428,7 +1442,7 @@ def _prove(machine, config, mk) -> MachineProof:
         fn = _quotient_stage(machine, chip, log_degrees[ci], qds[ci],
                              shapes_q, shift, log_blowup, mk)
         return fn(prep_lde, main_ldes[ci], perm_ldes[ci], ch_arr, alpha_arr,
-                  from_reference(cs_host[ci], dev))
+                  _upload(cs_host[ci], dev))
 
     with stage("compute quotient polynomial"):
         quotient_mats = [quotient_one(ci, c) for ci, c in enumerate(chips)]
@@ -1535,10 +1549,10 @@ def _prove(machine, config, mk) -> MachineProof:
     layer_trees, root_devs = [], []
     with stage("FRI commit phase"):
         k0 = len(challenger.input_buffer)
-        dev_state = from_reference(np.array(challenger.state,
-                                            dtype=np.uint32), dev)
-        pending = from_reference(np.array(challenger.input_buffer,
-                                          dtype=np.uint32), dev)
+        dev_state = _upload(np.array(challenger.state, dtype=np.uint32),
+                            dev)
+        pending = _upload(np.array(challenger.input_buffer,
+                                   dtype=np.uint32), dev)
         for layer, log_m in enumerate(range(log_max, log_stop, -1)):
             if (_sharded(1 << log_m, mk)
                     and not _sharded(1 << (log_m - 1), mk)):

@@ -111,8 +111,10 @@ def _phi(q_cols: torch.Tensor, counts: torch.Tensor, mesh):
         raise ValueError(f"logup_phi_step: K = {k} is not a power of two; "
                          f"the reference's pairwise sum drops columns there "
                          f"(ROADMAP C)")
-    # the counts are raw u32 words, multiplied into Montgomery q as they are
-    terms = ext_mul_base(q_cols, u32_as_int64(counts))  # [B/dp, N/sp, K, 5]
+    # the counts are raw u32 words, multiplied into Montgomery q as they
+    # are: taken mod p first, as int32 words the field kernels take
+    counts_p = (u32_as_int64(counts) % bb.P).to(torch.int32)
+    terms = ext_mul_base(q_cols, counts_p)  # [B/dp, N/sp, K, 5]
     while terms.shape[2] > 1:
         half = terms.shape[2] // 2
         terms = bb.add(terms[:, :, :half], terms[:, :, half:])

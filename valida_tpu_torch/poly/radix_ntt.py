@@ -127,8 +127,8 @@ def dif_passes_plain(a: torch.Tensor, log_n: int, inverse: bool,
             # [hi, tile rows as (block, half, i mod hl), low, columns]
             x = a.reshape(1 << s0, 1 << lv, 2, hl, stride, rest_n)
             x0, x1 = x[:, :, 0], x[:, :, 1]
-            lo = bb.add(x0, x1)
-            hi = bb.mul(bb.sub(x0, x1), tw[:, :, None])
+            lo = bb.add_plain(x0, x1)
+            hi = bb.mul_plain(bb.sub_plain(x0, x1), tw[:, :, None])
             a = torch.stack([lo, hi], dim=2).reshape(n, rest_n)
         s0 += t
     return a
