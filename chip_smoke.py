@@ -76,6 +76,15 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
        package's, the port's verifier, and the two tampers of (f);
    (k) the same by `run_native(build_lists=False)`: its op arrays held to
        (h)'s logs converted, then as (h);
+   then (quot): the quotient kernel of csrc/constraint.cu
+   (`constraint_eval`) held against `quotient_rows_plain` word for word
+   for every chip of (k)'s machine at (k)'s heights, on random LDE words,
+   in the bit-reversed form the staged prover reads in place, the natural
+   form with a stride, and (cpu, mem) a mesh rank's block and halo from
+   row0 = Q/2, and each chip's kernel timed beside its plain version and
+   bound (a machine prove launches it once a chip, on every machine path;
+   every call a recorded path makes, (jm)'s one-rank NCCL mesh form
+   included, is held against plain as it returns);
    then the staged prover (`prove_jit`: each stage a CUDA graph captured
    at its first call and replayed after), the kernel calls of its eager
    first runs recorded and held against plain, the graphs released after
@@ -220,9 +229,15 @@ FIELD_OPS = {
 }
 # the field kernels (csrc/field.cu), which every path runs: a commit or a
 # PCS proof runs the element-wise kernel (a PCS opening the extension
-# product and inverse too), a machine prove all four
+# product and inverse too), a BasicMachine prove all four
 FIELD = ("field_elementwise", "field_ext_mul", "field_inv", "field_ext_inv")
 FIELD_PCS = ("field_elementwise", "field_ext_mul", "field_ext_inv")
+# a BasicMachine prove runs them and the quotient kernel
+# (csrc/constraint.cu); the test machines' traces take no inverse, and the
+# quotient's selector tables, which do, are built once per shape: a prove
+# of theirs launches field_inv only where its shapes are new
+MACHINE = FIELD + ("constraint_eval",)
+RAGGED = FIELD_PCS + ("constraint_eval",)
 # a path's field kernel calls held against plain: every FIELD_SAMPLE-th of
 # each kernel (the first, then every 64th); a 2^20-cycle prove makes tens
 # of thousands
@@ -334,13 +349,13 @@ PCS_GOLDEN = {
 # seed=7) under default_config(hasher=...), and the kernels each must and
 # must not launch.  (m) is the golden fixture's machine and config.
 MACHINE_PATHS = {
-    "m": (None, "keccak", ("keccak256", "ntt_dif_ragged") + FIELD,
+    "m": (None, "keccak", ("keccak256", "ntt_dif_ragged") + RAGGED,
           ("poseidon2",)),
-    "f'": (14, "keccak", ("keccak256", "ntt_dif_ragged") + FIELD,
+    "f'": (14, "keccak", ("keccak256", "ntt_dif_ragged") + RAGGED,
            ("poseidon2",)),
-    "g'": (14, "poseidon2", ("poseidon2", "ntt_dif_ragged") + FIELD,
+    "g'": (14, "poseidon2", ("poseidon2", "ntt_dif_ragged") + RAGGED,
            ("keccak256",)),
-    "f": (20, "keccak", ("keccak256", "ntt_dif_ragged") + FIELD,
+    "f": (20, "keccak", ("keccak256", "ntt_dif_ragged") + RAGGED,
           ("poseidon2",)),
 }
 FIXTURE = "tests/fixtures/mini_proof_v1.cbor"
@@ -364,13 +379,13 @@ F_ROOTS = [
 # interpreter ("run": the Python step loop; "lists" and "arrays": the C++
 # core, run_native(build_lists=True / False)) and the kernels each must and
 # must not launch.  A path's pin is that of the first word of its name.
-BASIC_KERNELS = (("keccak256", "ntt_dif_ragged") + FIELD, ("poseidon2",))
+BASIC_KERNELS = (("keccak256", "ntt_dif_ragged") + MACHINE, ("poseidon2",))
 # the distributed prover's paths (jm) and (g'm) on one rank: every LDE of
 # 128 rows or more runs dist_dif, whose two steps' widths are multiples of
 # 128 there (ntt_dif_whole)
-MESH_KERNELS = {"jm": (("keccak256", "ntt_dif_whole") + FIELD,
+MESH_KERNELS = {"jm": (("keccak256", "ntt_dif_whole") + MACHINE,
                        ("poseidon2",)),
-                "g'm": (("poseidon2", "ntt_dif_whole") + FIELD,
+                "g'm": (("poseidon2", "ntt_dif_whole") + RAGGED,
                         ("keccak256",))}
 BASIC_PATHS = {
     "n": ("fib", "run"),
@@ -569,6 +584,9 @@ SOURCES = {
                   "valida_tpu/field/babybear.py:195"),
     "field_ext_inv": ("valida_tpu_torch/csrc/field.cu",
                       "valida_tpu/field/ext.py:98"),
+    # no Pallas kernel: the JAX package's quotient stage, which XLA fuses
+    "constraint_eval": ("valida_tpu_torch/csrc/constraint.cu",
+                        "valida_tpu/machine/jit_prover.py:1015"),
 }
 
 
@@ -906,6 +924,139 @@ def field_phase(dev, check) -> None:
         + "; ".join(e_cases) + "; zeros; inv_batch == its product tree")
 
 
+# 32-bit instructions of one row of a chip's constraint program, as
+# (multiplies, all), counted as the row interpreter (csrc/constraint.cuh)
+# computes each instruction form on canonical operands, and as few as sm_90
+# needs: a base add or sub is 3 (add or subtract; compare and select, or a
+# fused add-minimum), a neg 3; a Montgomery product 3 multiplies and 2
+# others.  An operation on an extension operand does this on each of the 5
+# coefficients that change: ext + base and ext - base only coefficient 0,
+# base - ext all 5 (4 negated).  An extension product is field_ext_mul's
+# count without its 10 canon: 35 multiplies (25 wide products as
+# multiply-adds, 5 reductions of 2) and 40 others (5 doublings, 10 folds,
+# 5 corrections, 2 each).  ACC adds a constraint times its power of alpha
+# to 64-bit accumulators: each wide product a multiply-add and a fold (2),
+# 25 of them and 5 doublings for an extension constraint, 5 for a base one
+# (1 times a base one).  Each row also takes each column word it reads mod
+# p once (`canon`, 3), and ends in 5 reductions (2 multiplies, 2 others)
+# and 5 products by 1/Z_H.  The uniform program runs once per block of
+# rows and is left out.  The least time is the larger of the multiplies
+# alone and half of all instructions, as for a butterfly.
+CONSTRAINT_FORM_OPS = {
+    ("add", False, False): (0, 3), ("sub", False, False): (0, 3),
+    ("neg", False): (0, 3),
+    ("add", True, False): (0, 3), ("add", False, True): (0, 3),
+    ("add", True, True): (0, 15), ("sub", True, False): (0, 3),
+    ("sub", False, True): (0, 15), ("sub", True, True): (0, 15),
+    ("neg", True): (0, 15),
+    ("mul", False, False): (3, 5), ("mul", True, False): (15, 25),
+    ("mul", False, True): (15, 25), ("mul", True, True): (35, 75),
+    ("acc", False, False): (1, 3), ("acc", True, False): (5, 15),
+    ("acc", False, True): (5, 15), ("acc", True, True): (25, 85),
+}
+CONSTRAINT_ROW_END_OPS = (5 * 2 + 5 * 3, 5 * 4 + 5 * 5)
+
+
+def constraint_slots(prog) -> float:
+    """Issue slots of one row of a chip's constraint program
+    (air/program.py `Program`): its instruction forms (`forms`) by
+    CONSTRAINT_FORM_OPS, a canon for each column word its row program
+    reads, and the row's end (CONSTRAINT_ROW_END_OPS)."""
+    from valida_tpu_torch.air import program
+
+    muls, ops = CONSTRAINT_ROW_END_OPS
+    for form, n in prog.forms.items():
+        m, a = CONSTRAINT_FORM_OPS[form]
+        muls, ops = muls + n * m, ops + n * a
+    words = {program.K_MAIN_L: 1, program.K_MAIN_N: 1, program.K_PREP_L: 1,
+             program.K_PREP_N: 1, program.K_PERM_L: 5, program.K_PERM_N: 5}
+    read = set()  # the column operands (kind, index) of the row program
+    for c, _dst, a, b in prog.code[prog.n_uniform:].tolist():
+        operands = [((c >> 8) & 15, a)]
+        if c & 15 != program.OP_NEG:
+            operands.append(((c >> 12) & 15, b))
+        read.update(o for o in operands if o[0] in words)
+    ops += CANON_OPS * sum(words[kind] for kind, _ in read)
+    return max(muls, ops / 2)
+
+
+def quot_phase(dev, check, machine, degrees, cfg, rand_field, cuda_ms,
+               int32_ops_per_s) -> dict:
+    """(quot): the quotient kernel of csrc/constraint.cu held against
+    `quotient_rows_plain` on the card, word for word (`check` raises on a
+    difference), for every chip of `machine` (the ALU loop at 2^20 cycles)
+    at its log-degree in `degrees`, on random LDE words (words 0, 1 and
+    p - 1 among them): in the bit-reversed form the staged prover reads in
+    place and the natural form with a stride the eager prover reads; for
+    cpu and mem also a mesh rank's form (a block of half the domain from
+    row0 = Q/2 and its 2^qd halo rows).  Then each chip's kernel in the
+    bit-reversed form, (j)'s, timed beside its plain version and its bound:
+    bytes, each LDE row read once, the selectors and the output; issue
+    slots, `constraint_slots` of its program.  Returns the numbers by
+    chip."""
+    import torch
+    from valida_tpu_torch.air import program, quotient
+
+    log_blowup, shift = cfg.pcs.log_blowup, cfg.pcs.coset_shift()
+
+    def lde(rows, cols):
+        if not cols:
+            return None
+        x = rand_field((rows, cols))
+        flat = x.view(-1)
+        for step, word in ((89, 0), (97, 1), (101, P - 1)):
+            flat[::step] = word
+        return x
+
+    numbers = {}
+    for chip in machine.chips():
+        ld = degrees[chip.name]
+        qd = quotient.get_log_quotient_degree(machine, chip)
+        prog = program.chip_program(machine, chip, ld)
+        w, pw, n_perm = prog.widths
+        length, stride = 1 << (ld + log_blowup), 1 << (log_blowup - qd)
+        q = length // stride
+        bufs = [lde(length, pw), lde(length, w), lde(length, 5 * n_perm)]
+        ch, al, cs = rand_field((3, 5)), rand_field((5,)), rand_field((5,))
+        args = (machine, chip, ld, qd, *bufs, cs, ch, al, shift)
+        forms = {"bit-reversed": dict(stride=stride, bitrev=True),
+                 "natural": dict(stride=stride)}
+        for form, kw in forms.items():
+            check("constraint_eval", quotient.quotient_rows(*args, **kw),
+                  quotient.quotient_rows_plain(*args, **kw),
+                  f"{chip.name} 2^{ld} rows, {form}")
+        if chip.name in ("cpu", "mem"):
+            rows = q // 2
+            halo = [lde(rows + (1 << qd), c) for c in (pw, w, 5 * n_perm)]
+            hargs = (machine, chip, ld, qd, *halo, cs, ch, al, shift, q // 2)
+            check("constraint_eval", quotient.quotient_rows(*hargs, rows=rows),
+                  quotient.quotient_rows_plain(*hargs, rows=rows),
+                  f"{chip.name} a mesh rank's block and halo")
+            del halo
+        kw = forms["bit-reversed"]
+        ms = cuda_ms(lambda: quotient.quotient_rows(*args, **kw), 5)
+        plain_ms = cuda_ms(lambda: quotient.quotient_rows_plain(*args, **kw),
+                           1)
+        nbytes = q * (w + pw + 5 * n_perm + 3 + 5) * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = q * constraint_slots(prog) / int32_ops_per_s * 1e3
+        numbers[chip.name] = dict(
+            rows=q, widths=(w, pw, n_perm), instructions=prog.n_row,
+            uniform=prog.n_uniform, slot_words=prog.slot_words, ms=ms,
+            plain_ms=plain_ms, t_bytes=t_bytes, t_ops=t_ops)
+        log(f"(quot) {chip.name}: 2^{ld} rows, Q = {q}, widths {w}+{pw}+"
+            f"{n_perm}x5, {prog.n_row} row / {prog.n_uniform} uniform "
+            f"instructions, {prog.slot_words} slot words: == plain "
+            f"({', '.join(forms)}"
+            + (", block and halo" if chip.name in ("cpu", "mem") else "")
+            + f"); {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms ("
+            + ("bytes" if t_bytes >= t_ops else "operations")
+            + f"; bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+        del bufs, args
+    return numbers
+
+
 def run_cli(log) -> dict:
     """Path (cli): `python -m valida_tpu_torch.tooling.cli` asm, run,
     prove and verify of CLI_PROGRAM with CLI_ADVICE, each action in a
@@ -995,6 +1146,7 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from valida_tpu_torch import _build, utils
+    from valida_tpu_torch.air import quotient
     from valida_tpu_torch.commit.fri import FriConfig, FriError
     from valida_tpu_torch.commit.lde_commit import commit_forward
     from valida_tpu_torch.commit.pcs import TwoAdicFriPcs
@@ -1259,6 +1411,12 @@ def main() -> int:
             launch(lib_name, fn, *args)
             return
         name = fn.removesuffix("_launch")
+        if lib_name == "constraint":
+            # held against its plain version where its wrapper returns
+            # (held_quotient), which knows the machine and the chip
+            device_runs[name] += 1
+            launch(lib_name, fn, *args)
+            return
         if lib_name == "field":
             # every FIELD_SAMPLE-th call of each field kernel is held
             device_runs[name] += 1
@@ -1292,6 +1450,46 @@ def main() -> int:
               f"{recording[0]} input {tuple(x_in.shape)}")
         calls.append((name, tuple(x_in.shape)))
 
+    kernel_branch = quotient._quotient_rows_kernel
+
+    def held_quotient(*args):
+        """A quotient kernel call (`_quotient_rows_kernel`), held word for
+        word against `quotient_rows_plain` on the same inputs as it
+        returns (the plain version launches none of our kernels: it
+        computes with the `*_plain` field functions)."""
+        out = kernel_branch(*args)
+        if torch.cuda.is_current_stream_capturing():
+            return out
+        (machine, chip, log_degree, qd, prep, main, perm, cs, ch, alpha,
+         shift, row0, rows, stride, bitrev) = args
+        want = quotient.quotient_rows_plain(
+            machine, chip, log_degree, qd, prep, main, perm, cs, ch, alpha,
+            shift, row0, rows=rows, stride=stride, bitrev=bitrev)
+        e = err(out, want)
+        max_err["constraint_eval"] = max(max_err["constraint_eval"], e)
+        if e != 0:
+            raise RuntimeError(f"constraint_eval differs from its plain "
+                               f"version at {recording[0]} chip {chip.name} "
+                               f"output {tuple(out.shape)}: max |diff| = {e}")
+        calls.append(("constraint_eval", tuple(out.shape)))
+        return out
+
+    # the launches and kernel runs made building the quotient's selector
+    # tables, once per shape and not in a stage's graph: a warm prove
+    # repeats none of them, so its comparisons with eager first runs leave
+    # them out (reset with the counters)
+    table_setup = {"launches": dict.fromkeys(device_runs, 0),
+                   "runs": dict.fromkeys(device_runs, 0)}
+    build_tables = quotient.selector_tables
+
+    def counted_tables(*args):
+        launched, ran = dict(_build.LAUNCHES), dict(device_runs)
+        out = build_tables(*args)
+        for k in device_runs:
+            table_setup["launches"][k] += _build.LAUNCHES[k] - launched[k]
+            table_setup["runs"][k] += device_runs[k] - ran[k]
+        return out
+
     def run_recorded(what, needed, forbidden, fn, sample=False):
         """Run fn() with the launch counters at 0 and every kernel call
         recorded and held against the plain version as it returns;
@@ -1307,12 +1505,17 @@ def main() -> int:
         _build.reset_launches()
         for k in device_runs:
             device_runs[k] = 0
+            table_setup["launches"][k] = table_setup["runs"][k] = 0
         _build.launch = recording_launch
+        quotient._quotient_rows_kernel = held_quotient
+        quotient.selector_tables = counted_tables
         try:
             out = fn()
             torch.cuda.synchronize()
         finally:
             _build.launch = launch
+            quotient._quotient_rows_kernel = kernel_branch
+            quotient.selector_tables = build_tables
         counts = dict(_build.LAUNCHES)
         replayed = dict(_build.GRAPH_LAUNCHES)
         log(f"{what} launches: {counts}"
@@ -1619,9 +1822,18 @@ def main() -> int:
                 f"package's")
             check_tampers(what, machine, cfg, proof)
             basic_state[path] = dict(machine=machine, cfg=cfg, proof=proof,
-                                     interpret_s=t_interp,
+                                     degrees=degrees, interpret_s=t_interp,
                                      launches=launches[path],
                                      device_runs=runs)
+
+    # (quot): the quotient kernel against its plain version for every chip
+    # of (k)'s machine at (k)'s heights, and timed there ((j)'s shapes)
+    t0 = time.perf_counter()
+    quot_numbers = quot_phase(
+        dev, check, basic_state["k"]["machine"], basic_state["k"]["degrees"],
+        default_config(), rand_field, cuda_ms, int32_ops_per_s)
+    torch.cuda.empty_cache()
+    log(f"(quot) took {time.perf_counter() - t0:.1f} s")
 
     # the staged prover on (h'), then on the same loop with the divisor's
     # immediate changed from 3 to 5: the same shapes, so the same graphs
@@ -1829,6 +2041,31 @@ def main() -> int:
     log(f"field_inv's square-and-multiply plain version (inv_plain) at 2^21 "
         f"words: {cuda_ms(lambda: bb.inv_plain(base1[0][0]), 2):.4f} ms")
     del base1, base2, ext1, ext2
+
+    # constraint_eval: (quot)'s per-chip times summed over the 15 chips of
+    # (j)'s machine (one prove's quotients), against the sum of their bounds
+    src, replaces = SOURCES["constraint_eval"]
+    t_bytes = sum(v["t_bytes"] for v in quot_numbers.values())
+    t_ops = sum(v["t_ops"] for v in quot_numbers.values())
+    kernels.append({
+        "name": "constraint_eval", "route": "cuda", "source": src,
+        "replaces": replaces,
+        "launches": sum(n["constraint_eval"] for n in launches.values()),
+        "launches_per_path": {p: n["constraint_eval"]
+                              for p, n in launches.items()},
+        "max_abs_err": max_err["constraint_eval"],
+        "ms": sum(v["ms"] for v in quot_numbers.values()),
+        "plain_ms": sum(v["plain_ms"] for v in quot_numbers.values()),
+        "bound_ms": sum(max(v["t_bytes"], v["t_ops"])
+                        for v in quot_numbers.values()),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "ms_per_chip": {k: v["ms"] for k, v in quot_numbers.items()},
+    })
+    log(f"constraint_eval: {kernels[-1]['ms']:.4f} ms for the 15 chips of "
+        f"(j)'s machine, plain {kernels[-1]['plain_ms']:.4f} ms, bound "
+        f"{kernels[-1]['bound_ms']:.4f} ms ({kernels[-1]['bound_by']}; "
+        f"bytes {t_bytes:.4f}, operations {t_ops:.4f})")
 
     # NTT butterflies/s at 2^19 x 128, as bench.py counts them
     n, cols = 1 << 19, 128
@@ -2058,11 +2295,14 @@ def main() -> int:
         f"{what} warmup_jit", *BASIC_KERNELS,
         lambda: jit_prover.warmup_jit(machine, cfg), sample=True)
     # the warm-up's eager first runs: their counted launches and kernel
-    # runs (its graphs' one replay each counted apart), which a warm
-    # prove's replays must repeat for the field kernels
+    # runs (its graphs' one replay each counted apart, and the selector
+    # tables' build), which a warm prove's replays must repeat for the
+    # field kernels
     j_eager = {name: n - _build.GRAPH_LAUNCHES[name]
+               - table_setup["launches"][name]
                for name, n in launches["j warmup"].items()}
-    j_eager_runs = dict(device_runs)
+    j_eager_runs = {k: n - table_setup["runs"][k]
+                    for k, n in device_runs.items()}
     log(f"{what}: warmup_jit (kernel calls recorded) in "
         f"{time.perf_counter() - t0:.1f} s: {n_calls} stage calls, "
         f"{jit_prover.stats['captures']} graphs captured; memory peak "
@@ -2224,10 +2464,13 @@ def main() -> int:
                 sample=True)
             t_warm = time.perf_counter() - t0
             # the warm-up's eager first runs: their counted launches and
-            # kernel runs (its graphs' one replay each counted apart)
+            # kernel runs (its graphs' one replay each and the selector
+            # tables' build counted apart)
             eager = {k: n - _build.GRAPH_LAUNCHES[k]
+                     - table_setup["launches"][k]
                      for k, n in launches["jm warmup"].items()}
-            eager_runs = dict(device_runs)
+            eager_runs = {k: n - table_setup["runs"][k]
+                          for k, n in device_runs.items()}
             if n_calls != dry:
                 raise RuntimeError(f"{what}: warmup_jit called {n_calls} "
                                    f"stages, warmup_jit(dry=True) counts "
@@ -2240,7 +2483,8 @@ def main() -> int:
                 f"allocated ({base / 2**30:.3f} GiB held before it), "
                 f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB "
                 f"reserved; eager first runs: launches {eager}, kernel runs "
-                f"{eager_runs}")
+                f"{eager_runs}; the selector tables' build apart: launches "
+                f"{ {k: n for k, n in table_setup['launches'].items() if n} }")
             captures = jit_prover.stats["captures"]
             coll = dict(dist_ntt.COLLECTIVES)
             proof, launches["jm"] = run_recorded(

@@ -610,7 +610,11 @@ def kernel_branches(emulated, monkeypatch):
 def test_kernel_branches_prove_the_fixture(kernel_branches):
     """The golden fixture's machine proved with every field operation in
     the kernels' branches (layouts, dispatch and field.cuh's arithmetic,
-    the launches emulated) gives the fixture's bytes."""
+    the launches emulated) gives the fixture's bytes.  The quotient on
+    CPU tensors is `quotient_rows_plain`, which computes with the `*_plain`
+    field functions (its kernel branch, whose selector tables invert, is
+    held in test_torch_constraint_kernel.py): the prove's other stages
+    reach three of the four kernels, the inverse not among them."""
     from tests.test_torch_machine import FIXTURE
     from valida_tpu_torch.core.config import default_config
     from valida_tpu_torch.machine import examples
@@ -623,4 +627,4 @@ def test_kernel_branches_prove_the_fixture(kernel_branches):
         assert serialize_proof(proof) == f.read()
     kernels = {fn for fn, _layout in kernel_branches}
     assert kernels == {f"field_{k}_launch" for k in
-                       ("elementwise", "ext_mul", "inv", "ext_inv")}
+                       ("elementwise", "ext_mul", "ext_inv")}

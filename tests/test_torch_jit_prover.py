@@ -186,13 +186,13 @@ def test_warmup_dry_enumerates_the_prove_stages(jit_proofs, case):
 
 @pytest.mark.parametrize("tiles, machine", [
     ({"PERM_CHUNK": 16}, lambda: examples.random_ragged_machine(64, seed=3)),
-    ({"QUOTIENT_CHUNK": 8, "REDUCED_CHUNK": 8, "OPEN_CHUNK": 8},
+    ({"REDUCED_CHUNK": 8, "OPEN_CHUNK": 8},
      lambda: examples.random_mini_machine(48, seed=2)),
     ({"TREE_FUSE_MAX": 4}, lambda: examples.random_mini_machine(16, seed=5)),
-], ids=["perm", "quotient+reduced+open", "tree levels"])
+], ids=["perm", "reduced+open", "tree levels"])
 def test_chunked_stages_same_proof(monkeypatch, tiles, machine):
     """Row-tiled stages (the permutation trace with phi carried across
-    tiles; the quotient, the openings and the reduced openings) and Merkle
+    tiles; the openings and the reduced openings) and Merkle
     trees built a stage per level give the one-shot stages' proof, which
     is the eager prover's."""
     cfg = _cpu_config(num_queries=4, proof_of_work_bits=2)
@@ -205,8 +205,7 @@ def test_chunked_stages_same_proof(monkeypatch, tiles, machine):
     assert serialize_proof(jp.prove_jit(machine(), cfg)) == want
     tiled = set(jp.STAGE_LOG) - keys_before
     assert {k[0] for k in tiled} >= {
-        {"PERM_CHUNK": "perm", "QUOTIENT_CHUNK": "quot",
-         "REDUCED_CHUNK": "red", "OPEN_CHUNK": "open",
+        {"PERM_CHUNK": "perm", "REDUCED_CHUNK": "red", "OPEN_CHUNK": "open",
          "TREE_FUSE_MAX": "hashpair"}[k]
         for k in tiles}
     assert jp._plan(machine(), cfg) == jp.STAGE_LOG

@@ -2,8 +2,10 @@
 
 Each csrc/<name>.cu has a plain C interface: every pointer and the stream
 are `void*`, every size an `int` (csrc/field.cu takes its sizes and
-strides as a host array of int64 behind a pointer), and each entry returns
-`cudaGetLastError()` as an int.  The shared library goes to
+strides, csrc/constraint.cu its parameters, as a host array of int64
+behind a pointer), and each entry returns
+`cudaGetLastError()` as an int, or a negative code for arguments it
+refuses (`REFUSALS`).  The shared library goes to
 build/valida_tpu_torch/ beside the package, named by a hash of its source,
 the csrc headers and the flags, so a changed source is rebuilt and a stale
 one never loads.
@@ -51,6 +53,12 @@ SIGNATURES = {
         "field_inv_launch": [_P, _P, _P, _P],
         "field_ext_inv_launch": [_P, _P, _P, _P],
     },
+    # a chip's quotient (air/quotient.py): program, main, prep, perm,
+    # selectors, zinv, challenges, alpha, cumulative sum, output, host
+    # params, stream
+    "constraint": {
+        "constraint_eval_launch": [_P] * 12,
+    },
 }
 
 # launches of each kernel, counted by its wrapper where it launches
@@ -60,9 +68,15 @@ SIGNATURES = {
 # GRAPH_LAUNCHES.
 LAUNCHES = {"ntt_dif_whole": 0, "ntt_dif_ragged": 0, "keccak256": 0,
             "poseidon2": 0, "field_elementwise": 0, "field_ext_mul": 0,
-            "field_inv": 0, "field_ext_inv": 0}
+            "field_inv": 0, "field_ext_inv": 0, "constraint_eval": 0}
 CAPTURED = dict.fromkeys(LAUNCHES, 0)
 GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+
+# what an entry refuses, by its negative return code
+# (csrc/constraint.cuh `Refusal`)
+REFUSALS = {-1: "a parameter out of range",
+            -2: "the program and its staged rows do not fit a block's "
+                "shared memory at 32 rows"}
 
 _LIBS: dict = {}
 
@@ -158,8 +172,15 @@ def launch(name: str, fn: str, *args) -> None:
         else:
             conv.append(a)
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(name), fn)(*conv, stream)
-    if err != 0:
+    raise_for(fn, getattr(lib(name), fn)(*conv, stream))
+
+
+def raise_for(fn: str, err: int) -> None:
+    """Raise for entry `fn`'s return code: ValueError for a refusal,
+    RuntimeError for a CUDA error."""
+    if err < 0:
+        raise ValueError(f"{fn}: {REFUSALS.get(err, f'refused ({err})')}")
+    if err:
         raise RuntimeError(f"{fn}: CUDA error {err}")
 
 

@@ -62,25 +62,40 @@ class SymExpr:
 # ---------------------------------------------------------------------------
 
 
+def field_fn(name: str, plain: bool = False):
+    """The field function `name` (babybear's, or field/ext.py's `ext_*`):
+    the dispatching one (a kernel on the card), or with `plain` its
+    `*_plain` version, which runs as tensor operations on any device."""
+    mod = extf if name.startswith("ext_") else bb
+    return getattr(mod, f"{name}_plain" if plain else name)
+
+
 class VVal:
     """Wrapped device value: base [..] or ext [.., 5] Montgomery int32.  A
-    constant is a 0-dim tensor that broadcasts."""
+    constant is a 0-dim tensor that broadcasts.  Its arithmetic is the
+    dispatching field functions; a `PlainVVal`'s is their `*_plain`
+    versions (a kernel's plain version computes with these, so that it
+    shares no CUDA code with the kernel it is held against)."""
 
     __slots__ = ("arr", "is_ext")
+    plain = False
 
     def __init__(self, arr, is_ext: bool):
         self.arr = arr
         self.is_ext = is_ext
 
-    @staticmethod
-    def const(c: int, device) -> "VVal":
-        return VVal(torch.full((), bb.monty_scalar(int(c) % bb.P),
-                               dtype=torch.int32, device=device), False)
+    @classmethod
+    def const(cls, c: int, device) -> "VVal":
+        return cls(torch.full((), bb.monty_scalar(int(c) % bb.P),
+                              dtype=torch.int32, device=device), False)
+
+    def _f(self, name: str, *args):
+        return field_fn(name, self.plain)(*args)
 
     def _coerce(self, o) -> "VVal":
         if isinstance(o, VVal):
             return o
-        return VVal.const(int(o), self.arr.device)
+        return self.const(int(o), self.arr.device)
 
     def _as_ext(self):
         if self.is_ext:
@@ -94,16 +109,18 @@ class VVal:
     def __add__(self, o):
         o = self._coerce(o)
         if self.is_ext or o.is_ext:
-            return VVal(bb.add(self._as_ext(), o._as_ext()), True)
-        return VVal(bb.add(self.arr, o.arr), False)
+            return type(self)(self._f("add", self._as_ext(), o._as_ext()),
+                              True)
+        return type(self)(self._f("add", self.arr, o.arr), False)
 
     __radd__ = __add__
 
     def __sub__(self, o):
         o = self._coerce(o)
         if self.is_ext or o.is_ext:
-            return VVal(bb.sub(self._as_ext(), o._as_ext()), True)
-        return VVal(bb.sub(self.arr, o.arr), False)
+            return type(self)(self._f("sub", self._as_ext(), o._as_ext()),
+                              True)
+        return type(self)(self._f("sub", self.arr, o.arr), False)
 
     def __rsub__(self, o):
         return self._coerce(o).__sub__(self)
@@ -111,19 +128,26 @@ class VVal:
     def __mul__(self, o):
         o = self._coerce(o)
         if self.is_ext and o.is_ext:
-            return VVal(extf.ext_mul(self.arr, o.arr), True)
+            return type(self)(self._f("ext_mul", self.arr, o.arr), True)
         if self.is_ext:
             base = o.arr[..., None] if o.arr.dim() else o.arr
-            return VVal(bb.mul(self.arr, base), True)
+            return type(self)(self._f("mul", self.arr, base), True)
         if o.is_ext:
             base = self.arr[..., None] if self.arr.dim() else self.arr
-            return VVal(bb.mul(o.arr, base), True)
-        return VVal(bb.mul(self.arr, o.arr), False)
+            return type(self)(self._f("mul", o.arr, base), True)
+        return type(self)(self._f("mul", self.arr, o.arr), False)
 
     __rmul__ = __mul__
 
     def __neg__(self):
-        return VVal(bb.neg(self.arr), self.is_ext)
+        return type(self)(self._f("neg", self.arr), self.is_ext)
+
+
+class PlainVVal(VVal):
+    """A VVal whose arithmetic is the `*_plain` field functions."""
+
+    __slots__ = ()
+    plain = True
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +293,9 @@ class VectorBuilder(BaseBuilder):
                  prep_next, perm_local, perm_next, perm_challenges,
                  is_first_row, is_last_row, is_transition, alpha=None,
                  trace_height=None):
+        """The values are VVals, or all PlainVVals (then the builder's
+        constants and `fold` compute with the `*_plain` field functions
+        too)."""
         self.machine = machine
         self.trace_height = trace_height
         self.main_local = main_local
@@ -282,11 +309,12 @@ class VectorBuilder(BaseBuilder):
         self.is_last_row = is_last_row
         self.is_transition = is_transition
         self.device = is_first_row.arr.device
+        self.vval = type(is_first_row)
         self.alpha = alpha
         self.collected = []
 
     def const(self, c):
-        return VVal.const(c, self.device)
+        return self.vval.const(c, self.device)
 
     def assert_zero(self, e):
         if not isinstance(e, VVal):
@@ -306,14 +334,17 @@ class VectorBuilder(BaseBuilder):
         k = len(self.collected)
         if k == 0:
             return None
+        vval = self.vval
+        ext_mul, mul = (field_fn("ext_mul", vval.plain),
+                        field_fn("mul", vval.plain))
         # alpha powers [k, 5] by doubling
         a = self.alpha._as_ext()
         arr = extf.ext_one(self.device)[None, :]
         cur = a[None, :] if a.dim() == 1 else a
         length = 1
         while length < k:
-            arr = torch.cat([arr, extf.ext_mul(arr, cur)], dim=0)
-            cur = extf.ext_mul(cur, cur)
+            arr = torch.cat([arr, ext_mul(arr, cur)], dim=0)
+            cur = ext_mul(cur, cur)
             length *= 2
 
         base_idx = [i for i, c in enumerate(self.collected) if not c.is_ext]
@@ -332,16 +363,16 @@ class VectorBuilder(BaseBuilder):
             apows = arr.index_select(0, index_tensor(  # [K_base, 5]
                 tuple(k - 1 - i for i in base_idx), self.device))
             apows = apows.reshape(apows.shape[:1] + (1,) * len(shape) + (5,))
-            comps = [_mod_sum(bb.mul(stack, apows[..., d]), axis=0)
+            comps = [_mod_sum(mul(stack, apows[..., d]), axis=0)
                      for d in range(5)]
-            partials.append(VVal(torch.stack(comps, dim=-1), True))
+            partials.append(vval(torch.stack(comps, dim=-1), True))
         for i in ext_idx:
-            partials.append(VVal(self.collected[i]._as_ext(), True)
-                            * VVal(arr[k - 1 - i], True))
+            partials.append(vval(self.collected[i]._as_ext(), True)
+                            * vval(arr[k - 1 - i], True))
         acc = partials[0]
         for t in partials[1:]:
             acc = acc + t
-        return VVal(acc._as_ext(), True)
+        return vval(acc._as_ext(), True)
 
 
 class ScalarBuilder(BaseBuilder):

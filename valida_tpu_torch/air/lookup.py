@@ -259,7 +259,10 @@ def eval_permutation_constraints(chip, builder, cumulative_sum_value):
 
 def _cum_sum_expr(builder, cs):
     """The cumulative sum as a builder value: a host ext tuple, or (vector
-    mode) a canonical int32 [5] tensor."""
+    mode) a canonical int32 [5] tensor, or already a builder value (a
+    program's input node, air/program.py)."""
+    if hasattr(cs, "is_ext"):
+        return cs
     if isinstance(builder.perm_challenges[0], SymExpr):
         return SymExpr(0)
     if isinstance(builder.perm_challenges[0], SVal):

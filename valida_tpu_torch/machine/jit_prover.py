@@ -107,7 +107,7 @@ from ..air.check import check_constraints, check_cumulative_sums
 from ..air.lookup import (generate_permutation_trace, padded_prep,
                           perm_cols_and_terms, phi_column)
 from ..air.quotient import (decompose_and_flatten, get_log_quotient_degree,
-                            quotient_rows, quotient_values)
+                            quotient_rows, release_selector_tables)
 from ..commit import fri as frim
 from ..commit.pcs import (BatchOpening, PcsProof, PcsQueryProof,
                           _alpha_combine, _coset_points_bitrev,
@@ -125,10 +125,10 @@ from ..parallel.dist_ntt import (COLLECTIVES, axis_info, count_collective,
 from ..poly import ntt as nttm
 from ..utils import stage
 
-# row tiles of the permutation, quotient, openings and reduced-opening
-# stages (a power of two; 0: the whole domain at once), and the largest
+# row tiles of the permutation, openings and reduced-opening stages (a
+# power of two; 0: the whole domain at once), and the largest
 # Merkle tree built in one stage (bigger ones run a stage per level)
-PERM_CHUNK = QUOTIENT_CHUNK = OPEN_CHUNK = REDUCED_CHUNK = 0
+PERM_CHUNK = OPEN_CHUNK = REDUCED_CHUNK = 0
 TREE_FUSE_MAX = 1 << 13
 
 # host->device uploads of the current prove (reset at each prove_jit): the
@@ -267,13 +267,15 @@ class Stage:
 
 
 def release_graphs() -> None:
-    """Drop every captured graph, its static tensors and the shared pool
-    (the caller drops its references to stage outputs too; then
+    """Drop every captured graph, its static tensors, the shared pool and
+    the quotient's selector tables, which the graphs read (the caller
+    drops its references to stage outputs too; then
     `torch.cuda.empty_cache()` returns the memory)."""
     _GRAPHS.clear()
     _OUTPUT_OF.clear()
     _LAST[0] = None
     _POOL.clear()
+    release_selector_tables()
 
 
 def _begin_prove() -> None:
@@ -1003,23 +1005,18 @@ def _quotient_stage(machine, chip, log_degree, qd, shapes, shift,
     challenges [3, 5], alpha [5] and the cumulative sum [5], canonical ->
     the quotient chunk matrix [n, 2^qd * 5] canonical (in a mesh prove, LDEs
     and chunk matrix in the mesh layout)."""
-    chunk = QUOTIENT_CHUNK
     key = _keyed(("quot", type(machine).__name__, chip.name, log_degree, qd,
-                  shapes, shift, log_blowup, chunk), mk)
+                  shapes, shift, log_blowup), mk)
     fn = _QUOTIENT_STAGE_CACHE.get(key)
     if fn is not None:
         return fn
 
-    def natural(lde_rev):
-        if lde_rev is None:
-            return None
-        return nttm._gather_bitrev(lde_rev, _log2(lde_rev.shape[0]))
-
     def stage_fn(prep_lde, main_lde, perm_lde, ch_arr, alpha_arr, cum):
-        qv = quotient_values(machine, chip, log_degree, qd, natural(prep_lde),
-                             natural(main_lde), natural(perm_lde), cum,
-                             ch_arr, alpha_arr, shift, log_blowup,
-                             chunk=chunk)
+        # the bit-reversed LDEs read in place: natural row r of the
+        # quotient domain is LDE row bitrev(r·2^(log_blowup - qd))
+        qv = quotient_rows(machine, chip, log_degree, qd, prep_lde, main_lde,
+                           perm_lde, cum, ch_arr, alpha_arr, shift,
+                           stride=1 << (log_blowup - qd), bitrev=True)
         return decompose_and_flatten(qv, shift, qd)
 
     def stage_whole(*args):
@@ -1039,12 +1036,12 @@ def _quotient_stage(machine, chip, log_degree, qd, shapes, shift,
         def rows(lde):  # this rank's block of the domain, and its halo
             if lde is None:
                 return None
-            x = move_rows(lde, m.mesh, m.axis, _quotient_wanted, (log_q, qd))
-            return x[:qb], x[1 << qd:(1 << qd) + qb]
+            return move_rows(lde, m.mesh, m.axis, _quotient_wanted,
+                             (log_q, qd))
 
         qv = quotient_rows(machine, chip, log_degree, qd, rows(prep_lde),
                            rows(main_lde), rows(perm_lde), cum, ch_arr,
-                           alpha_arr, shift, m.r * qb, chunk)
+                           alpha_arr, shift, m.r * qb, rows=qb)
         if not dif_applies(log_degree, m.d):
             return _block_of(decompose_and_flatten(_gather_rows(qv), shift,
                                                    qd), mk)

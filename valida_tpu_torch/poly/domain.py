@@ -26,10 +26,12 @@ def coset_points(log_n: int, shift: int) -> np.ndarray:
 
 
 def coset_points_device(log_n: int, shift: int, device, start: int = 0,
-                        count: int | None = None) -> torch.Tensor:
+                        count: int | None = None,
+                        mul=bb.mul) -> torch.Tensor:
     """The words of `coset_points` (or of its rows [start, start + count)),
     built on `device` from log_n scalar constants (square and multiply over
-    the bits of the index) rather than copied from a host table."""
+    the bits of the index, by `mul`) rather than copied from a host
+    table."""
     n = (1 << log_n) if count is None else count
     idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     acc = torch.full((n,), bb.monty_scalar(shift % bb.P), dtype=torch.int32,
@@ -37,7 +39,7 @@ def coset_points_device(log_n: int, shift: int, device, start: int = 0,
     g = bb.two_adic_generator(log_n)
     for b in range(log_n):
         gb = bb.monty_scalar(bb.h_exp(g, 1 << b))
-        acc = torch.where(((idx >> b) & 1).bool(), bb.mul(acc, gb), acc)
+        acc = torch.where(((idx >> b) & 1).bool(), mul(acc, gb), acc)
     return acc
 
 
