@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils import span
+
 
 def _check_transfer(what: str, device) -> None:
     """Raise inside a CUDA graph capture (machine/jit_prover.py)."""
@@ -18,27 +20,40 @@ def _check_transfer(what: str, device) -> None:
 
 def from_reference(arr, device="cpu") -> torch.Tensor:
     """u32 array (trace, table, digests; any integer dtype whose values fit
-    in 32 bits) -> int32 tensor holding the same bit patterns."""
+    in 32 bits) -> int32 tensor holding the same bit patterns (an upload to
+    a CUDA device is the span "upload")."""
     _check_transfer("a host upload", device)
+    if torch.device(device).type != "cuda":
+        return _host_words(arr)
+    with span("upload"):
+        # from page-locked memory the copy is queued behind the device's
+        # work instead of waiting for it
+        return _host_words(arr).pin_memory().to(device, non_blocking=True)
+
+
+def _host_words(arr) -> torch.Tensor:
     a = np.asarray(arr)
     if a.dtype != np.uint32:
         if a.size and (a.min() < 0 or a.max() > 0xFFFFFFFF):
             raise ValueError("values do not fit in u32")
         a = a.astype(np.uint32)
     a = np.ascontiguousarray(a)
-    t = torch.from_numpy(a.view(np.int32).copy())
-    if torch.device(device).type == "cuda":
-        # from page-locked memory the copy is queued behind the device's
-        # work instead of waiting for it
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    return torch.from_numpy(a.view(np.int32).copy())
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 tensor -> np.uint32 array with the same bits."""
+    """int32 tensor -> np.uint32 array with the same bits (a CUDA tensor's
+    copy is the span "fetch")."""
     if t.dtype != torch.int32:
         raise TypeError(f"expected int32, got {t.dtype}")
     _check_transfer("a copy to the host", t.device)
+    if t.device.type != "cuda":
+        return _host_array(t)
+    with span("fetch"):
+        return _host_array(t)
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu").contiguous().numpy().view(np.uint32).copy()
 
 

@@ -27,6 +27,7 @@ import torch
 
 from ..convert import table
 from ..field import babybear as bb
+from ..utils import span
 
 WIDTH = 16
 ALPHA = 5
@@ -109,17 +110,19 @@ def _h_sbox(x: np.ndarray) -> np.ndarray:
 
 
 def permute_host(state) -> np.ndarray:
-    """state: 16 canonical ints -> np.uint64[16]."""
-    s = np.asarray(state, dtype=np.uint64) % _P64
-    for r in range(NUM_ROUNDS):
-        s = (s + ROUND_CONSTANTS[r]) % _P64
-        if _partial(r):
-            s[0] = _h_sbox(s[:1])[0]
-        else:
-            s = _h_sbox(s)
-        # each product is reduced below p before the sum: 16 p < 2^35
-        s = ((MDS * s[np.newaxis, :]) % _P64).sum(axis=1) % _P64
-    return s
+    """state: 16 canonical ints -> np.uint64[16] (a span
+    "poseidon: permute_host" each)."""
+    with span("poseidon: permute_host"):
+        s = np.asarray(state, dtype=np.uint64) % _P64
+        for r in range(NUM_ROUNDS):
+            s = (s + ROUND_CONSTANTS[r]) % _P64
+            if _partial(r):
+                s[0] = _h_sbox(s[:1])[0]
+            else:
+                s = _h_sbox(s)
+            # each product is reduced below p before the sum: 16 p < 2^35
+            s = ((MDS * s[np.newaxis, :]) % _P64).sum(axis=1) % _P64
+        return s
 
 
 # ---------------------------------------------------------------------------

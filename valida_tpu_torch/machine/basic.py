@@ -30,6 +30,7 @@ from ..chips.byte import ByteChip
 from ..chips.range import RangeCheckerChip
 from ..chips.output import OutputChip, ex_write
 from ..chips import alu
+from ..utils import span
 from .machine import Machine
 
 DID_STOP = "did_stop"
@@ -198,8 +199,9 @@ class BasicMachine(Machine):
 
         run_native(self, build_lists=build_lists, advice=advice_bytes)
         # memory/output sort-delta limbs feed the range bus
-        self._mem.register_range_checks(self)
-        self._output.register_range_checks(self)
+        with span("execute: range checks"):
+            self._mem.register_range_checks(self)
+            self._output.register_range_checks(self)
 
     def run(self, program: ProgramROM | None = None,
             advice: AdviceProvider | None = None):

@@ -123,7 +123,7 @@ from ..parallel.dist_ntt import (COLLECTIVES, axis_info, count_collective,
                                  dif_applies, dist_coeffs, dist_eval,
                                  dist_extend, move_rows)
 from ..poly import ntt as nttm
-from ..utils import stage
+from ..utils import span, stage
 
 # row tiles of the permutation, openings and reduced-opening stages (a
 # power of two; 0: the whole domain at once), and the largest
@@ -132,17 +132,14 @@ PERM_CHUNK = OPEN_CHUNK = REDUCED_CHUNK = 0
 TREE_FUSE_MAX = 1 << 13
 
 # host->device uploads of the current prove (reset at each prove_jit): the
-# bytes of every host array it uploads, and of the traces and trace inputs
-# among them under "trace_bytes"
-transfer_stats = {"bytes": 0, "trace_bytes": 0}
+# bytes of every host array it uploads
+transfer_stats = {"bytes": 0}
 
 
-def _upload(arr, device, trace: bool = False) -> torch.Tensor:
+def _upload(arr, device) -> torch.Tensor:
     """`from_reference(arr, device)`, counted in transfer_stats."""
     t = from_reference(arr, device)
     transfer_stats["bytes"] += t.nbytes
-    if trace:
-        transfer_stats["trace_bytes"] += t.nbytes
     return t
 
 
@@ -224,7 +221,8 @@ class Stage:
         gkey = (_LAST[0], self.key, producers)
         g = _GRAPHS.get(gkey)
         if g is None:
-            g = _GRAPHS[gkey] = self._capture(leaves, spec, producers)
+            with span(f"capture: {self.key[0]}"):
+                g = _GRAPHS[gkey] = self._capture(leaves, spec, producers)
         else:
             for static, a in zip(g.inputs, leaves):
                 if a is not None and a is not static:
@@ -1308,39 +1306,44 @@ def prove_jit(machine, config, mesh=None, row_axis: str = "sp"
 
 
 def _prove(machine, config, mk) -> MachineProof:
-    _begin_prove()
-    transfer_stats["bytes"] = transfer_stats["trace_bytes"] = 0
-    chips = machine.chips()
-    pcs = config.pcs
-    fri_config = pcs.config
-    dev = pcs.device
-    shift, log_blowup = pcs.coset_shift(), pcs.log_blowup
-    hasher = fri_config.hasher
-    challenger = config.challenger()
-    qds = [get_log_quotient_degree(machine, c) for c in chips]
+    # the host's stretches outside the stages are spans "prove: ..."
+    with span("prove: setup"):
+        _begin_prove()
+        transfer_stats["bytes"] = 0
+        chips = machine.chips()
+        pcs = config.pcs
+        fri_config = pcs.config
+        dev = pcs.device
+        shift, log_blowup = pcs.coset_shift(), pcs.log_blowup
+        hasher = fri_config.hasher
+        challenger = config.challenger()
+        qds = [get_log_quotient_degree(machine, c) for c in chips]
 
     # -- traces (in the mesh layout: this rank's blocks) ---------------------
-    prep_indices, prep_host, prep_list = {}, [], []
-    for ci, c in enumerate(chips):
-        p = c.preprocessed_trace()
-        if p is not None:
-            prep_indices[ci] = len(prep_list)
-            prep_host.append(np.asarray(p, dtype=np.uint32))
-            prep_list.append(_upload(_host_block(prep_host[-1], mk), dev))
-    prep_shapes = [tuple(int(x) for x in p.shape) for p in prep_host]
+    with span("prove: preprocessed traces"):
+        prep_indices, prep_host, prep_list = {}, [], []
+        for ci, c in enumerate(chips):
+            p = c.preprocessed_trace()
+            if p is not None:
+                prep_indices[ci] = len(prep_list)
+                prep_host.append(np.asarray(p, dtype=np.uint32))
+                prep_list.append(_upload(_host_block(prep_host[-1], mk), dev))
+        prep_shapes = [tuple(int(x) for x in p.shape) for p in prep_host]
     heights = []
 
     def one_trace(c):
-        dti = c.device_trace_inputs(machine)
-        if dti is None:
-            t = np.asarray(c.generate_trace(machine), dtype=np.uint32)
+        with span(f"trace inputs: {c.name}"):
+            dti = c.device_trace_inputs(machine)
+            t = (np.asarray(c.generate_trace(machine), dtype=np.uint32)
+                 if dti is None else None)
+        if t is not None:
             heights.append(int(t.shape[0]))
-            return _upload(_host_block(t, mk), dev, trace=True)
+            return _upload(_host_block(t, mk), dev)
         inputs, meta = dti
         heights.append(int(meta[1]))
         fn = _trace_stage(machine, c, tuple(tuple(x.shape) for x in inputs),
                           meta, mk)
-        return fn(*[_upload(x, dev, trace=True) for x in inputs])
+        return fn(*[_upload(x, dev) for x in inputs])
 
     with stage("generate main traces"):
         main_traces = [one_trace(c) for c in chips]
@@ -1381,14 +1384,15 @@ def _prove(machine, config, mk) -> MachineProof:
         else:
             prep_tree, prep_coeffs, prep_ldes = None, [], []
             prep_root = np.zeros(8, dtype=np.uint32)
-    challenger.observe_digest(prep_root)
+    with span("prove: transcript"):
+        challenger.observe_digest(prep_root)
 
     with stage("commit to main traces"):
         main_tree, main_coeffs, main_ldes = commit(main_traces, main_shapes)
-    challenger.observe_digest(main_tree.root)
-
-    perm_challenges = [challenger.sample_ext() for _ in range(3)]
-    ch_arr = _upload(np.array(perm_challenges, dtype=np.uint32), dev)
+    with span("prove: transcript"):
+        challenger.observe_digest(main_tree.root)
+        perm_challenges = [challenger.sample_ext() for _ in range(3)]
+        ch_arr = _upload(np.array(perm_challenges, dtype=np.uint32), dev)
 
     def perm_one(ci, c, t):
         w, ld = main_shapes[ci][1], log_degrees[ci]
@@ -1410,13 +1414,13 @@ def _prove(machine, config, mk) -> MachineProof:
     perm_shapes = [(h, int(f.shape[1])) for h, f in zip(heights, perm_flat)]
     with stage("commit to permutation traces"):
         perm_tree, perm_coeffs, perm_ldes = commit(perm_flat, perm_shapes)
-    challenger.observe_digest(perm_tree.root)
-    cs_host = to_numpy(_stack_canon_stage(len(chips), mk)(
-        tuple(o[1] for o in perm_outs)))
-    cumulative_sums = _to_ext_tuples(cs_host)
-
-    alpha = challenger.sample_ext()
-    alpha_arr = _upload(np.array(alpha, dtype=np.uint32), dev)
+    with span("prove: transcript"):
+        challenger.observe_digest(perm_tree.root)
+        cs_host = to_numpy(_stack_canon_stage(len(chips), mk)(
+            tuple(o[1] for o in perm_outs)))
+        cumulative_sums = _to_ext_tuples(cs_host)
+        alpha = challenger.sample_ext()
+        alpha_arr = _upload(np.array(alpha, dtype=np.uint32), dev)
 
     if config.debug_checks:
         with stage("check constraints"):
@@ -1448,11 +1452,12 @@ def _prove(machine, config, mk) -> MachineProof:
         quotient_tree, quotient_coeffs, quotient_ldes = commit(
             quotient_mats, quot_shapes,
             [bb.h_exp(shift, 1 << qd) for qd in qds])
-    challenger.observe_digest(quotient_tree.root)
+    with span("prove: transcript"):
+        challenger.observe_digest(quotient_tree.root)
+        zeta = challenger.sample_ext()
+        zeta_m = extf.ext_const(zeta, dev)
 
     # -- openings ------------------------------------------------------------
-    zeta = challenger.sample_ext()
-    zeta_m = extf.ext_const(zeta, dev)
     rounds = []  # (tree, coefficients, LDEs, point kinds, global shapes)
     if prep_tree is not None:
         rounds.append((prep_tree, prep_coeffs, prep_ldes,
@@ -1477,7 +1482,8 @@ def _prove(machine, config, mk) -> MachineProof:
         c = to_numpy(bb.from_monty(_gather_stage((h, w), mk)(c)))
         return c[nttm.bitrev_indices(_log2(h))]
 
-    direct_polys = [direct_poly(mi) for mi in sorted(direct)]
+    with span("prove: direct polys"):
+        direct_polys = [direct_poly(mi) for mi in sorted(direct)]
     group_items = list(groups.items())
 
     def open_direct(mi):
@@ -1513,14 +1519,16 @@ def _prove(machine, config, mk) -> MachineProof:
                 opened[mi] = [_to_ext_tuples(hp[off:off + w])
                               for hp in host_points]
                 off += w
-        for mi in sorted(direct):
-            opened[mi] = open_direct(mi)
-    for mat_vals in opened:
-        for point_vals in mat_vals:
-            for val in point_vals:
-                challenger.observe_ext(val)
-    observe_direct_polys(challenger, direct_polys)
-    alpha_fri_m = extf.ext_const(challenger.sample_ext(), dev)
+        with span("prove: open direct"):
+            for mi in sorted(direct):
+                opened[mi] = open_direct(mi)
+    with span("prove: observe openings"):
+        for mat_vals in opened:
+            for point_vals in mat_vals:
+                for val in point_vals:
+                    challenger.observe_ext(val)
+        observe_direct_polys(challenger, direct_polys)
+        alpha_fri_m = extf.ext_const(challenger.sample_ext(), dev)
 
     reduced = {}
     with stage("reduce openings"):
@@ -1574,13 +1582,16 @@ def _prove(machine, config, mk) -> MachineProof:
         for r in commits:
             challenger.observe_digest(r)
             challenger.sample_ext()
-    final_poly = frim.extract_final_poly(current, fri_config, log_max,
-                                         log_stop, shift, challenger)
+    with span("prove: final poly"):
+        final_poly = frim.extract_final_poly(current, fri_config, log_max,
+                                             log_stop, shift, challenger)
     with stage("PoW grind"):
         pow_witness = frim.grind_device(challenger,
                                         fri_config.proof_of_work_bits, dev)
-    qidx = np.array([challenger.sample_bits(log_max)
-                     for _ in range(fri_config.num_queries)], dtype=np.int64)
+    with span("prove: query indices"):
+        qidx = np.array([challenger.sample_bits(log_max)
+                         for _ in range(fri_config.num_queries)],
+                        dtype=np.int64)
 
     # -- query openings: a gather stage per tree, one fetch for all ----------
     with stage("query openings"):
@@ -1596,41 +1607,45 @@ def _prove(machine, config, mk) -> MachineProof:
         layer_opens = [(next(fetched), next(fetched)) for _ in layer_trees]
         round_opens = [([next(fetched) for _ in r[1]], next(fetched))
                        for r in rounds]
-    fri_queries = [
-        frim.FriQueryProof(commit_phase_openings=[
-            frim.CommitPhaseOpening(pair_row=rows[qi], path=list(paths[qi]))
-            for rows, paths in layer_opens])
-        for qi in range(len(qidx))]
-    opening_proof = PcsProof(
-        fri=frim.FriProof(commit_phase_commits=commits,
-                          final_poly=final_poly, pow_witness=pow_witness,
-                          query_proofs=fri_queries),
-        query_proofs=[
-            PcsQueryProof(
-                input_openings=[BatchOpening(opened_rows=[r[qi] for r in rows],
-                                             path=list(paths[qi]))
-                                for rows, paths in round_opens],
-                fri_query=fri_queries[qi])
-            for qi in range(len(qidx))],
-        direct_polys=direct_polys)
+    with span("prove: assemble proof"):
+        fri_queries = [
+            frim.FriQueryProof(commit_phase_openings=[
+                frim.CommitPhaseOpening(pair_row=rows[qi],
+                                        path=list(paths[qi]))
+                for rows, paths in layer_opens])
+            for qi in range(len(qidx))]
+        opening_proof = PcsProof(
+            fri=frim.FriProof(commit_phase_commits=commits,
+                              final_poly=final_poly, pow_witness=pow_witness,
+                              query_proofs=fri_queries),
+            query_proofs=[
+                PcsQueryProof(
+                    input_openings=[
+                        BatchOpening(opened_rows=[r[qi] for r in rows],
+                                     path=list(paths[qi]))
+                        for rows, paths in round_opens],
+                    fri_query=fri_queries[qi])
+                for qi in range(len(qidx))],
+            direct_polys=direct_polys)
 
-    # -- opened values per chip ----------------------------------------------
-    n_prep, n = len(prep_list), len(chips)
-    chip_proofs = []
-    for ci in range(n):
-        pv = (opened[prep_indices[ci]] if ci in prep_indices else [[], []])
-        mv, ev = opened[n_prep + ci], opened[n_prep + n + ci]
-        chip_proofs.append(ChipProof(
-            log_degree=log_degrees[ci],
-            opened_values=OpenedValues(
-                preprocessed_local=pv[0], preprocessed_next=pv[1],
-                trace_local=mv[0], trace_next=mv[1],
-                permutation_local=ev[0], permutation_next=ev[1],
-                quotient_chunks=opened[n_prep + 2 * n + ci][0]),
-            cumulative_sum=cumulative_sums[ci]))
-    return MachineProof(
-        commitments=Commitments(preprocessed=prep_root,
-                                main_trace=main_tree.root,
-                                perm_trace=perm_tree.root,
-                                quotient_chunks=quotient_tree.root),
-        opening_proof=opening_proof, chip_proofs=chip_proofs)
+        # -- opened values per chip ------------------------------------------
+        n_prep, n = len(prep_list), len(chips)
+        chip_proofs = []
+        for ci in range(n):
+            pv = (opened[prep_indices[ci]] if ci in prep_indices
+                  else [[], []])
+            mv, ev = opened[n_prep + ci], opened[n_prep + n + ci]
+            chip_proofs.append(ChipProof(
+                log_degree=log_degrees[ci],
+                opened_values=OpenedValues(
+                    preprocessed_local=pv[0], preprocessed_next=pv[1],
+                    trace_local=mv[0], trace_next=mv[1],
+                    permutation_local=ev[0], permutation_next=ev[1],
+                    quotient_chunks=opened[n_prep + 2 * n + ci][0]),
+                cumulative_sum=cumulative_sums[ci]))
+        return MachineProof(
+            commitments=Commitments(preprocessed=prep_root,
+                                    main_trace=main_tree.root,
+                                    perm_trace=perm_tree.root,
+                                    quotient_chunks=quotient_tree.root),
+            opening_proof=opening_proof, chip_proofs=chip_proofs)

@@ -22,6 +22,7 @@ import numpy as np
 
 from ..chips.cpu import KIND_CODE
 from ..core import opcodes as OC
+from ..utils import span
 
 _P = ctypes.c_void_p
 _SIZE = ctypes.c_size_t
@@ -120,125 +121,137 @@ def run_native(machine, max_steps: int = 1 << 32, build_lists: bool = True,
 
     Raises NativeRunError if the library is unavailable, the VM fails (with
     the VM's message), or an executed opcode is not in the machine's ISA
-    (`type(machine).DISPATCH`)."""
+    (`type(machine).DISPATCH`).  Spans: "execute: native core" from the
+    VM's creation through its run, "execute: op logs" for the state copied
+    out of it."""
     try:
         lib = _load()
     except (OSError, RuntimeError) as e:
         raise NativeRunError(f"native interpreter unavailable: {e}") from e
 
-    from ..core.program import InstructionWord, Operands
-
     code = machine.program().program_rom.to_machine_code()
     cpu, mem = machine.cpu(), machine.mem()
     pc0, fp0 = cpu.pc, cpu.fp
-    vm = _P(lib.vm_create(code, len(code), pc0, fp0))
+    vm = None
     try:
-        static = machine.static_data().cells
-        if static:
-            addrs = np.fromiter(static.keys(), dtype=np.uint32)
-            vals = np.fromiter(static.values(), dtype=np.uint32)
-            lib.vm_set_static(vm, _ptr(addrs), _ptr(vals), len(addrs))
-            for a, v in static.items():
-                mem.write_static(a, v)
-        # the VM reads the advice buffer during vm_run: `adv` outlives it
-        adv = np.frombuffer(advice, dtype=np.uint8)
-        if len(adv):
-            lib.vm_set_advice(vm, _ptr(adv), len(adv))
-
-        failed = lib.vm_run(vm, max_steps) != 0
-
-        # -- cpu ops ----------------------------------------------------
-        n = int(lib.vm_num_cpu_ops(vm))
-        kind, has_imm, imm, opcode, operands, pcs, fps = _copy(
-            lib, vm, "vm_copy_cpu_ops", (n, np.uint8), (n, np.uint8),
-            (n, np.uint32), (n, np.uint32), ((n, 5), np.int32),
-            (n, np.uint32), (n, np.uint32))
-        # the VM runs the whole ISA; the machine may have a smaller one.
-        # Raise where `run` would: at the first executed opcode outside it
-        # (the VM stops at a failing instruction without logging it)
-        executed = opcode
-        rom = machine.program().program_rom
-        if failed and int(lib.vm_pc(vm)) < len(rom):
-            executed = np.append(
-                opcode, rom.get_instruction(int(lib.vm_pc(vm))).opcode)
-        allowed = list(type(machine).DISPATCH) + [OC.READ_ADVICE]
-        outside = ~np.isin(executed, allowed)
-        if outside.any():
-            raise NativeRunError(
-                f"Unrecognized opcode: {int(executed[outside.argmax()])}")
-        if failed:
-            raise NativeRunError(lib.vm_error(vm).decode())
-        if build_lists:
-            cpu.operations = [
-                (_CPU_KINDS[k], im if h else None)
-                for k, h, im in zip(kind.tolist(), has_imm.tolist(),
-                                    imm.tolist())]
-            cpu.instructions = [
-                InstructionWord(oc, Operands(tuple(o)))
-                for oc, o in zip(opcode.tolist(), operands.tolist())]
-            cpu.registers = [(pc0, fp0)] + list(zip(pcs.tolist(),
-                                                    fps.tolist()))
-        else:
-            # the VM records each op's registers after it ran: the state
-            # before op i is the initial one, then the state after op i - 1
-            pre_pc = np.empty(n, dtype=np.uint32)
-            pre_fp = np.empty(n, dtype=np.uint32)
-            if n:
-                pre_pc[0], pre_fp[0] = pc0, fp0
-                pre_pc[1:], pre_fp[1:] = pcs[:-1], fps[:-1]
-            cpu.operations, cpu.instructions, cpu.registers = [], [], []
-            cpu.ops_arrays = (kind, has_imm, imm, opcode, operands, pre_pc,
-                              pre_fp)
-        cpu.clock = int(lib.vm_clock(vm))
-        cpu.pc = int(lib.vm_pc(vm))
-        cpu.fp = int(lib.vm_fp(vm))
-
-        # -- memory ops, in execution order -----------------------------
-        n = int(lib.vm_num_mem_ops(vm))
-        clk, is_write, addr, value = _copy(
-            lib, vm, "vm_copy_mem_ops", (n, np.uint32), (n, np.uint8),
-            (n, np.uint32), (n, np.uint32))
-        if build_lists:
-            ops: dict[int, list] = {}
-            for ck, w, ad, vl in zip(clk.tolist(), is_write.tolist(),
-                                     addr.tolist(), value.tolist()):
-                ops.setdefault(ck, []).append(("w" if w else "r", ad, vl))
-            mem.operations = ops
-        else:
-            mem.operations = {}
-            mem.ops_arrays = (clk, is_write, addr, value)
-        n = int(lib.vm_num_cells(vm))
-        addrs, vals = _copy(lib, vm, "vm_copy_cells", (n, np.uint32),
-                            (n, np.uint32))
-        mem.cells = dict(zip(addrs.tolist(), vals.tolist()))
-
-        # -- ALU chips --------------------------------------------------
-        for name, (accessor, kinds) in ALU_LOGS.items():
-            if not hasattr(machine, accessor):
-                continue  # its opcodes were rejected above
-            n = int(getattr(lib, f"vm_num_{name}")(vm))
-            k, a, b, c = _copy(lib, vm, f"vm_copy_{name}",
-                               *[(n, np.uint32)] * 4)
-            if not build_lists:
-                ops = (k, a, b, c)
-            elif kinds is None:
-                ops = list(zip(a.tolist(), b.tolist(), c.tolist()))
-            else:
-                ops = [(kinds[ki], ai, bi, ci) for ki, ai, bi, ci in
-                       zip(k.tolist(), a.tolist(), b.tolist(), c.tolist())]
-            getattr(machine, accessor)().operations = ops
-
-        # -- counts, outputs --------------------------------------------
-        (rc,) = _copy(lib, vm, "vm_copy_range_counts", (256, np.uint32))
-        machine.range().count = {i: c for i, c in enumerate(rc.tolist())
-                                 if c}
-        n = int(lib.vm_num_program_counts(vm))
-        (counts,) = _copy(lib, vm, "vm_copy_program_counts",
-                          (n, np.uint32))
-        machine.program().counts = counts.tolist()
-        n = int(lib.vm_num_outputs(vm))
-        oclk, oval = _copy(lib, vm, "vm_copy_outputs", (n, np.uint64),
-                           (n, np.uint32))
-        machine.output().values = list(zip(oclk.tolist(), oval.tolist()))
+        with span("execute: native core"):
+            vm = _P(lib.vm_create(code, len(code), pc0, fp0))
+            static = machine.static_data().cells
+            if static:
+                addrs = np.fromiter(static.keys(), dtype=np.uint32)
+                vals = np.fromiter(static.values(), dtype=np.uint32)
+                lib.vm_set_static(vm, _ptr(addrs), _ptr(vals), len(addrs))
+                for a, v in static.items():
+                    mem.write_static(a, v)
+            # the VM reads the advice buffer during vm_run: `adv` outlives it
+            adv = np.frombuffer(advice, dtype=np.uint8)
+            if len(adv):
+                lib.vm_set_advice(vm, _ptr(adv), len(adv))
+            failed = lib.vm_run(vm, max_steps) != 0
+        with span("execute: op logs"):
+            _take_state(lib, vm, machine, failed, build_lists, pc0, fp0)
     finally:
-        lib.vm_free(vm)
+        if vm is not None:
+            lib.vm_free(vm)
+
+
+def _take_state(lib, vm, machine, failed: bool, build_lists: bool,
+                pc0: int, fp0: int) -> None:
+    """Copy the VM's op logs, registers, memory, counts and outputs into
+    the machine's chips (`run_native`'s second half)."""
+    from ..core.program import InstructionWord, Operands
+
+    cpu, mem = machine.cpu(), machine.mem()
+    # -- cpu ops ----------------------------------------------------
+    n = int(lib.vm_num_cpu_ops(vm))
+    kind, has_imm, imm, opcode, operands, pcs, fps = _copy(
+        lib, vm, "vm_copy_cpu_ops", (n, np.uint8), (n, np.uint8),
+        (n, np.uint32), (n, np.uint32), ((n, 5), np.int32),
+        (n, np.uint32), (n, np.uint32))
+    # the VM runs the whole ISA; the machine may have a smaller one.
+    # Raise where `run` would: at the first executed opcode outside it
+    # (the VM stops at a failing instruction without logging it)
+    executed = opcode
+    rom = machine.program().program_rom
+    if failed and int(lib.vm_pc(vm)) < len(rom):
+        executed = np.append(
+            opcode, rom.get_instruction(int(lib.vm_pc(vm))).opcode)
+    allowed = list(type(machine).DISPATCH) + [OC.READ_ADVICE]
+    outside = ~np.isin(executed, allowed)
+    if outside.any():
+        raise NativeRunError(
+            f"Unrecognized opcode: {int(executed[outside.argmax()])}")
+    if failed:
+        raise NativeRunError(lib.vm_error(vm).decode())
+    if build_lists:
+        cpu.operations = [
+            (_CPU_KINDS[k], im if h else None)
+            for k, h, im in zip(kind.tolist(), has_imm.tolist(),
+                                imm.tolist())]
+        cpu.instructions = [
+            InstructionWord(oc, Operands(tuple(o)))
+            for oc, o in zip(opcode.tolist(), operands.tolist())]
+        cpu.registers = [(pc0, fp0)] + list(zip(pcs.tolist(),
+                                                fps.tolist()))
+    else:
+        # the VM records each op's registers after it ran: the state
+        # before op i is the initial one, then the state after op i - 1
+        pre_pc = np.empty(n, dtype=np.uint32)
+        pre_fp = np.empty(n, dtype=np.uint32)
+        if n:
+            pre_pc[0], pre_fp[0] = pc0, fp0
+            pre_pc[1:], pre_fp[1:] = pcs[:-1], fps[:-1]
+        cpu.operations, cpu.instructions, cpu.registers = [], [], []
+        cpu.ops_arrays = (kind, has_imm, imm, opcode, operands, pre_pc,
+                          pre_fp)
+    cpu.clock = int(lib.vm_clock(vm))
+    cpu.pc = int(lib.vm_pc(vm))
+    cpu.fp = int(lib.vm_fp(vm))
+
+    # -- memory ops, in execution order -----------------------------
+    n = int(lib.vm_num_mem_ops(vm))
+    clk, is_write, addr, value = _copy(
+        lib, vm, "vm_copy_mem_ops", (n, np.uint32), (n, np.uint8),
+        (n, np.uint32), (n, np.uint32))
+    if build_lists:
+        ops: dict[int, list] = {}
+        for ck, w, ad, vl in zip(clk.tolist(), is_write.tolist(),
+                                 addr.tolist(), value.tolist()):
+            ops.setdefault(ck, []).append(("w" if w else "r", ad, vl))
+        mem.operations = ops
+    else:
+        mem.operations = {}
+        mem.ops_arrays = (clk, is_write, addr, value)
+    n = int(lib.vm_num_cells(vm))
+    addrs, vals = _copy(lib, vm, "vm_copy_cells", (n, np.uint32),
+                        (n, np.uint32))
+    mem.cells = dict(zip(addrs.tolist(), vals.tolist()))
+
+    # -- ALU chips --------------------------------------------------
+    for name, (accessor, kinds) in ALU_LOGS.items():
+        if not hasattr(machine, accessor):
+            continue  # its opcodes were rejected above
+        n = int(getattr(lib, f"vm_num_{name}")(vm))
+        k, a, b, c = _copy(lib, vm, f"vm_copy_{name}",
+                           *[(n, np.uint32)] * 4)
+        if not build_lists:
+            ops = (k, a, b, c)
+        elif kinds is None:
+            ops = list(zip(a.tolist(), b.tolist(), c.tolist()))
+        else:
+            ops = [(kinds[ki], ai, bi, ci) for ki, ai, bi, ci in
+                   zip(k.tolist(), a.tolist(), b.tolist(), c.tolist())]
+        getattr(machine, accessor)().operations = ops
+
+    # -- counts, outputs --------------------------------------------
+    (rc,) = _copy(lib, vm, "vm_copy_range_counts", (256, np.uint32))
+    machine.range().count = {i: c for i, c in enumerate(rc.tolist())
+                             if c}
+    n = int(lib.vm_num_program_counts(vm))
+    (counts,) = _copy(lib, vm, "vm_copy_program_counts",
+                      (n, np.uint32))
+    machine.program().counts = counts.tolist()
+    n = int(lib.vm_num_outputs(vm))
+    oclk, oval = _copy(lib, vm, "vm_copy_outputs", (n, np.uint64),
+                       (n, np.uint32))
+    machine.output().values = list(zip(oclk.tolist(), oval.tolist()))

@@ -17,6 +17,7 @@ import numpy as np
 from ..core.proof import MachineProof, Commitments, ChipProof, OpenedValues
 from ..commit.pcs import PcsProof, PcsQueryProof, BatchOpening
 from ..commit.fri import FriProof, FriQueryProof, CommitPhaseOpening
+from ..utils import span
 
 # ---------------------------------------------------------------------------
 # CBOR codec
@@ -74,9 +75,10 @@ def _encode(obj, out: bytearray):
 
 
 def cbor_dumps(obj) -> bytes:
-    out = bytearray()
-    _encode(obj, out)
-    return bytes(out)
+    with span("serialize: cbor"):
+        out = bytearray()
+        _encode(obj, out)
+        return bytes(out)
 
 
 class _Decoder:
@@ -169,6 +171,11 @@ def _final_poly_from_obj(o):
 
 
 def proof_to_obj(proof: MachineProof, config=None) -> dict:
+    with span("serialize: to object"):
+        return _proof_obj(proof, config)
+
+
+def _proof_obj(proof: MachineProof, config) -> dict:
     from ..crypto import poseidon
 
     fri = proof.opening_proof.fri

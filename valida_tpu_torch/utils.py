@@ -1,10 +1,15 @@
-"""Prover stage markers: a profiler range per stage, an opt-in live stage
-log and an opt-in host wall-clock collection.
+"""Prover stage markers and host spans: a profiler range per stage or
+span, an opt-in live stage log and an opt-in host wall-clock collection.
 
 Counterpart of valida_tpu/utils.py.  The Rust prover marks its stages with
 `tracing` spans; here each stage is a `torch.profiler.record_function`
-range (visible in `torch.profiler` traces, free without a profiler) under
-the same names.  `set_trace(True)` prints each stage's host wall-clock as
+range under the same names, visible in a `torch.profiler` trace on the
+timeline of the device's kernels and copies.  `span(name)` is the same
+range for host work that is no stage (execution, trace inputs, uploads,
+fetches, host permutations, graph captures, serialization): it stays out
+of the stage log and the collection, and never waits for the GPU.  Both
+open their range only while a profiler runs; without one a stage or span
+costs one check.  `set_trace(True)` prints each stage's host wall-clock as
 it ends, and `start_stage_collection` / `stop_stage_collection` gather it.
 While either is on, a stage waits for the GPU at its end, so that its time
 holds its device work and not only the time to queue it.  Unlike the JAX
@@ -19,6 +24,7 @@ import time
 import torch
 
 _TRACE = False
+_PROFILING = torch.autograd._profiler_enabled  # one C call
 _DEPTH = 0
 _COLLECT = None  # dict name -> [seconds, count, min_depth] when active
 
@@ -50,6 +56,30 @@ def stop_stage_collection() -> dict:
     }
 
 
+class span:
+    """A host span: `with span(name):` opens a profiler range of that name
+    while a profiler runs, and does nothing else.  Names say the layer
+    first ("execute: native core", "trace inputs: cpu", "upload", "fetch",
+    "poseidon: permute_host", "prove: transcript", "capture: lde",
+    "serialize: cbor")."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if _PROFILING():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+
+
 @contextlib.contextmanager
 def stage(name: str):
     """Stage marker.  Names follow the Rust prover's span names ("generate
@@ -62,7 +92,7 @@ def stage(name: str):
     depth = _DEPTH
     _DEPTH += 1
     try:
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
     finally:
         _DEPTH -= 1
