@@ -1,6 +1,12 @@
 """The port's Fiat-Shamir layer (valida_tpu_torch.crypto.p3_rng, .poseidon,
 .challenger) against the JAX package's: same constants for every
-parameter set, same permutations, same transcript."""
+parameter set, same permutations, same transcript.  The host permutation
+runs in C++ (native/poseidon.cpp): it is held word for word to its numpy
+version `permute_host_plain` and to the JAX package's, and it has no
+fallback."""
+
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -9,8 +15,10 @@ from valida_tpu.crypto import challenger as rchallenger
 from valida_tpu.crypto import p3_rng as rp3
 from valida_tpu.crypto import poseidon as rposeidon
 from valida_tpu.field import babybear as rbb
+from valida_tpu_torch import native
 from valida_tpu_torch.convert import from_reference, to_numpy
 from valida_tpu_torch.crypto import challenger, p3_rng, poseidon
+from valida_tpu_torch.native import build as native_build
 
 P = rbb.P
 PARAM_SETS = ["p3rng", "p3rng:canonical-ff-jm", "sha256"]
@@ -86,6 +94,44 @@ def test_permute_host(param_set):
         assert got.dtype == np.uint64
 
 
+def _edge_states():
+    """name -> a 16-word state: edge words, inputs in [p, 2^64) that the
+    permutation reduces first, and seeded random states."""
+    rng = np.random.default_rng(11)
+    states = {
+        "zeros": [0] * 16,
+        "p_minus_1": [P - 1] * 16,
+        "p": [P] * 16,
+        "u32_max": [(1 << 32) - 1] * 16,
+        "u64_max": [(1 << 64) - 1] * 16,
+        "unreduced": [int(v) for v in rng.integers(P, 1 << 32, size=16)],
+        "mixed": [0, P - 1, P, (1 << 32) - 1] * 4,
+        "one_hot": [1] + [0] * 15,
+    }
+    for k in range(5):
+        states[f"random{k}"] = [int(v) for v in rng.integers(0, P, size=16)]
+    return states
+
+
+EDGE_STATES = _edge_states()
+
+
+@pytest.mark.parametrize("name", EDGE_STATES)
+@pytest.mark.parametrize("param_set", PARAM_SETS, indirect=True)
+def test_permute_host_word_for_word(param_set, name):
+    """The C++ permutation against `permute_host_plain` and the JAX
+    package's `permute_host`, under each parameter set."""
+    state = EDGE_STATES[name]
+    got = poseidon.permute_host(state)
+    assert got.dtype == np.uint64 and got.shape == (16,)
+    np.testing.assert_array_equal(got, poseidon.permute_host_plain(state))
+    np.testing.assert_array_equal(got, rposeidon.permute_host(state))
+    # the state buffer is reused: a returned array is the caller's own
+    again = poseidon.permute_host(got)
+    np.testing.assert_array_equal(got, rposeidon.permute_host(state))
+    np.testing.assert_array_equal(again, rposeidon.permute_host(got))
+
+
 @pytest.mark.parametrize("param_set", PARAM_SETS, indirect=True)
 def test_permute_device(param_set):
     rng = np.random.default_rng(2)
@@ -128,6 +174,85 @@ def test_scripted_transcript(param_set):
     assert got_c.state == want_c.state
     assert got_c.input_buffer == want_c.input_buffer
     assert got_c.output_buffer == want_c.output_buffer
+
+
+def _long_script(seed: int):
+    """A long, mixed run: observes, digests, extension elements and samples
+    of every kind, enough for a few hundred permutations."""
+    rng = np.random.default_rng(seed)
+    ops = []
+    for _ in range(900):
+        kind = int(rng.integers(0, 6))
+        if kind == 0:
+            size = int(rng.integers(1, 40))
+            ops += [("observe", (int(v),))
+                    for v in rng.integers(0, 1 << 32, size=size)]
+        elif kind == 1:
+            ops.append(("observe_digest",
+                        (rng.integers(0, 1 << 32, size=8, dtype=np.uint32),)))
+        elif kind == 2:
+            ops.append(("observe_ext",
+                        (tuple(int(v) for v in rng.integers(0, P, size=5)),)))
+        elif kind == 3:
+            ops += [("sample_ext", ())] * int(rng.integers(1, 5))
+        elif kind == 4:
+            ops.append(("sample_bits", (int(rng.integers(1, 31)),)))
+        else:
+            ops += [("sample", ())] * int(rng.integers(1, 20))
+    return ops
+
+
+@pytest.mark.parametrize("param_set", PARAM_SETS, indirect=True)
+def test_transcript_matches_plain_permutation(param_set, monkeypatch):
+    """A challenger driven through a long, mixed run gives the challenges
+    and state of one whose permutation is `permute_host_plain`."""
+    ops = _long_script(5)
+    calls = []
+
+    def counted(state):
+        calls.append(1)
+        return poseidon.permute_host(state)
+
+    monkeypatch.setattr(challenger, "permute_host", counted)
+    got_c = challenger.DuplexChallenger()
+    got = _script(got_c, ops)
+    monkeypatch.setattr(challenger, "permute_host",
+                        poseidon.permute_host_plain)
+    want_c = challenger.DuplexChallenger()
+    assert got == _script(want_c, ops)
+    assert len(calls) > 300
+    assert got_c.state == want_c.state
+    assert got_c.input_buffer == want_c.input_buffer
+    assert got_c.output_buffer == want_c.output_buffer
+
+
+@pytest.mark.parametrize("missing", ["SRC", "POSEIDON_SRC"])
+def test_permute_host_has_no_fallback(monkeypatch, tmp_path, missing):
+    """With a source of the native library missing (so none can be built
+    or loaded), permute_host raises NativeRunError and never runs the numpy
+    permutation."""
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(poseidon, "_NATIVE", None)
+    monkeypatch.setattr(native_build, missing, tmp_path / "missing.cpp")
+
+    def no_plain(state):
+        raise AssertionError("permute_host fell back to numpy")
+
+    monkeypatch.setattr(poseidon, "permute_host_plain", no_plain)
+    with pytest.raises(native.NativeRunError, match="unavailable"):
+        poseidon.permute_host([0] * 16)
+    with pytest.raises(native.NativeRunError, match="unavailable"):
+        challenger.DuplexChallenger().sample()
+
+
+def test_importing_poseidon_loads_no_library():
+    """The library is built and loaded at the first permutation, not when
+    crypto/poseidon.py or the challenger is imported: the import does not
+    reach valida_tpu_torch.native, the library's only loader."""
+    code = ("import sys\n"
+            "import valida_tpu_torch.crypto.challenger\n"
+            "assert 'valida_tpu_torch.native' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
 def test_clone_is_independent():

@@ -286,8 +286,9 @@ def test_no_fallback_when_the_library_is_unavailable(monkeypatch, tmp_path):
 
 def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
     """g++ compiles valida_tpu_torch/native/interpreter.cpp (not the JAX
-    package's copy) into build/valida_tpu_torch/, to a file named by a hash
-    of the source and the flags, written whole and then renamed."""
+    package's copy) and native/poseidon.cpp into one library in
+    build/valida_tpu_torch/, to a file named by a hash of the sources and
+    the flags, written whole and then renamed."""
     import subprocess
     from pathlib import Path
 
@@ -295,6 +296,9 @@ def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
 
     pkg = Path(valida_tpu_torch.__file__).resolve().parent
     assert native_build.SRC == pkg / "native" / "interpreter.cpp"
+    assert native_build.POSEIDON_SRC == pkg / "native" / "poseidon.cpp"
+    assert native_build.sources() == (native_build.SRC,
+                                      native_build.POSEIDON_SRC)
     assert native_build.BUILD_DIR == pkg.parent / "build" / "valida_tpu_torch"
     assert native_build.SRC.read_bytes() != (
         pkg.parent / "valida_tpu" / "native" / "interpreter.cpp").read_bytes()
@@ -311,5 +315,23 @@ def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
     assert lib == native_build.target() and lib.parent == tmp_path
     assert [p.name for p in tmp_path.iterdir()] == [lib.name]
     (cmd,) = commands
-    assert cmd[0] == "g++" and cmd[-1] == str(native_build.SRC)
+    assert cmd[0] == "g++" and cmd[-2:] == [str(native_build.SRC),
+                                            str(native_build.POSEIDON_SRC)]
     assert native_build.build() == lib and len(commands) == 1
+
+
+@pytest.mark.parametrize("name", ["SRC", "POSEIDON_SRC"])
+def test_changing_either_source_changes_the_target(monkeypatch, tmp_path,
+                                                    name):
+    """The library's name hashes every source: an edit to either one
+    names another library, so a stale build never loads."""
+    for attr in ("SRC", "POSEIDON_SRC"):
+        copy = tmp_path / getattr(native_build, attr).name
+        copy.write_bytes(getattr(native_build, attr).read_bytes())
+        monkeypatch.setattr(native_build, attr, copy)
+    before = native_build.target()
+    assert before.parent == native_build.BUILD_DIR
+    src = getattr(native_build, name)
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    after = native_build.target()
+    assert after != before and after.name.startswith("libvalida_vm-")

@@ -1,5 +1,6 @@
 """valida_tpu_torch.tooling.prebaked: the list of what `install` builds
-(every kernel source and the C++ interpreter core), without building."""
+(every kernel source and the native host library's two C++ sources, the
+interpreter core and the Poseidon permutation), without building."""
 
 from valida_tpu_torch import _build
 from valida_tpu_torch.native import build as native_build
@@ -9,7 +10,8 @@ from valida_tpu_torch.tooling import prebaked
 def test_install_dry_lists_every_kernel_source_and_the_core():
     items = prebaked.install(dry=True)
     sources = {src for src, _lib in items}
-    assert sources == set(_build.CSRC.glob("*.cu")) | {native_build.SRC}
+    assert sources == set(_build.CSRC.glob("*.cu")) | {
+        native_build.SRC, native_build.POSEIDON_SRC}
     for src, lib in items:
         assert lib.parent == _build.BUILD_DIR
         assert lib.name.startswith(f"lib{src.stem}-"
@@ -22,7 +24,7 @@ def test_install_dry_builds_nothing(monkeypatch):
 
     monkeypatch.setattr(_build, "build_all", refuse)
     monkeypatch.setattr(native_build, "build", refuse)
-    assert len(prebaked.install(dry=True)) == len(_build.SIGNATURES) + 1
+    assert len(prebaked.install(dry=True)) == len(_build.SIGNATURES) + 2
 
 
 def test_the_listed_core_builds_with_gpp():

@@ -11,7 +11,8 @@ DuplexChallenger semantics:
   * sample_bits(b): the low b bits of a sampled element's canonical value.
   * sample_ext: D successive samples as coefficients.
 
-It runs on the host: the state is 16 words and strictly sequential.
+It runs on the host: the state is 16 words and strictly sequential, and
+each duplex is one call of the module's `permute_host` (C++).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ class DuplexChallenger:
         for i, v in enumerate(self.input_buffer):
             self.state[i] = v
         self.input_buffer.clear()
-        self.state = [int(x) for x in permute_host(self.state)]
+        self.state = permute_host(self.state).tolist()
         self.output_buffer = list(self.state)
 
     def observe(self, value: int):

@@ -11,9 +11,12 @@ MDS matrix.  The constants come from one of two schemes:
 The environment variable VALIDA_TPU_POSEIDON picks the scheme at import,
 `set_param_set` at run time.
 
-`permute_host` is exact numpy uint64 arithmetic on one state;
-`permute_device` is batched torch arithmetic in Montgomery form (the
-grind's search).  Both are plain: the JAX package has no TPU kernel here.
+`permute_host` permutes one state in C++ (native/poseidon.cpp, in the
+native host library, built and loaded at its first call; no fallback);
+`permute_host_plain` is the same exact arithmetic in numpy uint64, the
+version the tests hold it to.  `permute_device` is batched torch
+arithmetic in Montgomery form (the grind's search), plain: the JAX package
+has no TPU kernel here.
 """
 
 from __future__ import annotations
@@ -99,7 +102,8 @@ def _partial(r: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Host implementation (numpy uint64, exact)
+# Host implementation: one state, in C++ (native/poseidon.cpp) and in
+# numpy uint64 (its plain version); both exact
 # ---------------------------------------------------------------------------
 
 
@@ -109,20 +113,57 @@ def _h_sbox(x: np.ndarray) -> np.ndarray:
     return x4 * x % _P64
 
 
+def permute_host_plain(state) -> np.ndarray:
+    """state: 16 ints (each taken mod p) -> np.uint64[16]."""
+    s = np.asarray(state, dtype=np.uint64) % _P64
+    for r in range(NUM_ROUNDS):
+        s = (s + ROUND_CONSTANTS[r]) % _P64
+        if _partial(r):
+            s[0] = _h_sbox(s[:1])[0]
+        else:
+            s = _h_sbox(s)
+        # each product is reduced below p before the sum: 16 p < 2^35
+        s = ((MDS * s[np.newaxis, :]) % _P64).sum(axis=1) % _P64
+    return s
+
+
+# the C entry's state, permuted in place: reused by every call (the port
+# runs its challengers on one thread), so that a call builds no array but
+# its result
+_STATE = np.zeros(WIDTH, dtype=np.uint64)
+# (C entry, ROUND_CONSTANTS, MDS, the addresses of _STATE and of both), for
+# the constants active when it was bound
+_NATIVE = None
+
+
+def _native():
+    global _NATIVE
+    if (_NATIVE is None or _NATIVE[1] is not ROUND_CONSTANTS
+            or _NATIVE[2] is not MDS):
+        from .. import native
+
+        entry = native.library().poseidon16_permute
+        for a, shape in ((ROUND_CONSTANTS, (NUM_ROUNDS, WIDTH)),
+                         (MDS, (WIDTH, WIDTH))):
+            if (a.dtype != np.uint64 or a.shape != shape
+                    or not a.flags.c_contiguous or (a >= _P64).any()):
+                raise ValueError("Poseidon constants must be canonical "
+                                 f"C-contiguous uint64 {shape}")
+        _NATIVE = (entry, ROUND_CONSTANTS, MDS, _STATE.ctypes.data,
+                   ROUND_CONSTANTS.ctypes.data, MDS.ctypes.data)
+    return _NATIVE
+
+
 def permute_host(state) -> np.ndarray:
-    """state: 16 canonical ints -> np.uint64[16] (a span
-    "poseidon: permute_host" each)."""
+    """state: 16 ints (each taken mod p) -> np.uint64[16], the words of
+    `permute_host_plain`, by the C entry `poseidon16_permute` (a span
+    "poseidon: permute_host" each).  Raises native.NativeRunError if the
+    native library cannot be built or loaded."""
     with span("poseidon: permute_host"):
-        s = np.asarray(state, dtype=np.uint64) % _P64
-        for r in range(NUM_ROUNDS):
-            s = (s + ROUND_CONSTANTS[r]) % _P64
-            if _partial(r):
-                s[0] = _h_sbox(s[:1])[0]
-            else:
-                s = _h_sbox(s)
-            # each product is reduced below p before the sum: 16 p < 2^35
-            s = ((MDS * s[np.newaxis, :]) % _P64).sum(axis=1) % _P64
-        return s
+        entry, _rc, _mds, s, rc, mds = _native()
+        _STATE[:] = state
+        entry(s, rc, mds)
+        return _STATE.copy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,6 @@
-"""ctypes bindings of the native interpreter core (interpreter.cpp).
+"""ctypes bindings of the native host library: the interpreter core
+(interpreter.cpp) and the challenger's Poseidon permutation (poseidon.cpp,
+called by crypto/poseidon.py's `permute_host`).
 
 Counterpart of valida_tpu/native/__init__.py.  `run_native(machine)`
 executes the machine's loaded program with the C++ VM and fills its chips'
@@ -9,9 +11,10 @@ ALU chip's `operations`) and the Python lists stay empty; the trace
 builders read the arrays.
 
 There is no fallback: if the library cannot be built or loaded,
-`run_native` raises `NativeRunError`, and `available()` says beforehand
-whether it can be.  The library is built by g++ at its first use
-(native/build.py), never when this module is imported.
+`library()` raises `NativeRunError`, and so do `run_native` and the host
+permutation; `available()` says beforehand whether it can be.  The library
+is built by g++ at its first use (native/build.py), never when this module
+is imported.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ _SIGNATURES = {
     "vm_num_cells": (_SIZE, [_P]),
     "vm_copy_cells": (None, [_P, _P, _P]),
     "vm_free": (None, [_P]),
+    "poseidon16_permute": (None, [_P, _P, _P]),
 }
 
 # kind code -> the CPU log's kind name
@@ -92,6 +96,15 @@ def _load() -> ctypes.CDLL:
     return _LIB
 
 
+def library() -> ctypes.CDLL:
+    """The loaded library, built first if it is missing; raises
+    NativeRunError if it cannot be built or loaded."""
+    try:
+        return _load()
+    except (OSError, RuntimeError) as e:
+        raise NativeRunError(f"native library unavailable: {e}") from e
+
+
 def available() -> bool:
     """Whether the C++ core builds (or is built) and loads.  Nothing runs
     the Python interpreter in its place when it does not."""
@@ -124,11 +137,7 @@ def run_native(machine, max_steps: int = 1 << 32, build_lists: bool = True,
     (`type(machine).DISPATCH`).  Spans: "execute: native core" from the
     VM's creation through its run, "execute: op logs" for the state copied
     out of it."""
-    try:
-        lib = _load()
-    except (OSError, RuntimeError) as e:
-        raise NativeRunError(f"native interpreter unavailable: {e}") from e
-
+    lib = library()
     code = machine.program().program_rom.to_machine_code()
     cpu, mem = machine.cpu(), machine.mem()
     pc0, fp0 = cpu.pc, cpu.fp

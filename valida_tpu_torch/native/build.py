@@ -1,14 +1,14 @@
-"""Build the native interpreter's shared library with g++.
+"""Build the native host library with g++: the interpreter core
+(interpreter.cpp) and the challenger's Poseidon permutation (poseidon.cpp).
 
     python -m valida_tpu_torch.native.build
 
 Counterpart of valida_tpu/native/build.py.  The library goes to
-build/valida_tpu_torch/ beside the package, named by a hash of
-interpreter.cpp and the flags, so a changed source is rebuilt and a stale
-one never loads.  It is written to a temporary file and renamed into
-place, so processes that build at the same moment never load a partial
-file.  Nothing is built when the package is imported: `run_native`'s first
-call builds.
+build/valida_tpu_torch/ beside the package, named by a hash of every
+source and the flags, so a changed source is rebuilt and a stale library
+never loads.  It is written to a temporary file and renamed into place, so
+processes that build at the same moment never load a partial file.  Nothing is built when the package is imported: the first call of
+`run_native` or of the host permutation builds.
 """
 
 from __future__ import annotations
@@ -19,12 +19,21 @@ import subprocess
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "interpreter.cpp"
+POSEIDON_SRC = SRC.parent / "poseidon.cpp"
 BUILD_DIR = SRC.parents[2] / "build" / "valida_tpu_torch"
 FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
+def sources() -> tuple[Path, Path]:
+    """The library's sources (the module's paths as they are at the call,
+    so that a path replaced by a test is the one built and hashed)."""
+    return SRC, POSEIDON_SRC
+
+
 def target() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sources():
+        digest.update(hashlib.sha256(src.read_bytes()).digest())
     return BUILD_DIR / f"libvalida_vm-{digest.hexdigest()[:16]}.so"
 
 
@@ -36,12 +45,13 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *FLAGS, "-o", str(tmp), str(SRC)],
+    srcs = [str(src) for src in sources()]
+    proc = subprocess.run(["g++", *FLAGS, "-o", str(tmp), *srcs],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {SRC}:\n{proc.stdout}")
+        raise RuntimeError(f"g++ failed for {' '.join(srcs)}:\n{proc.stdout}")
     os.replace(tmp, out)
     return out
 

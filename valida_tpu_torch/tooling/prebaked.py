@@ -5,10 +5,11 @@
 Counterpart of the role of valida_tpu/tooling/prebaked.py, which ships XLA
 caches for the multi-device dry run.  The port compiles no graphs ahead of
 time; its one-time costs are the builds of the CUDA kernels (nvcc, one
-library per csrc/*.cu source, `_build.build_all`) and of the C++
-interpreter core (g++, `native/build.py`).  Both go to
-build/valida_tpu_torch/ under names made from a hash of the source and the
-flags, so a stale artefact is never loaded: a changed source builds anew.
+library per csrc/*.cu source, `_build.build_all`) and of the native host
+library (g++, `native/build.py`: the interpreter core and the challenger's
+Poseidon permutation).  Both go to build/valida_tpu_torch/ under names made
+from a hash of the sources and the flags, so a stale artefact is never
+loaded: a changed source builds anew.
 Nothing prebuilt is kept in the repository.
 """
 
@@ -22,11 +23,13 @@ from ..native import build as native_build
 
 def install(dry: bool = False) -> list[tuple[Path, Path]]:
     """Build every kernel library (one nvcc per source, all started
-    together) and the C++ core that are missing, and return (source, built
-    library) of each.  With dry=True, build nothing and return the list."""
+    together) and the native host library that are missing, and return
+    (source, built library) of each (the host library once per source).
+    With dry=True, build nothing and return the list."""
     items = ([(_build.CSRC / f"{name}.cu", _build._target(name))
               for name in _build.SIGNATURES]
-             + [(native_build.SRC, native_build.target())])
+             + [(src, native_build.target())
+                for src in native_build.sources()])
     if not dry:
         _build.build_all()
         native_build.build()
