@@ -86,16 +86,16 @@ def _capture_rules():
     seen = set()
     call, check = jp.Stage.__call__, convert._check_transfer
 
-    def stage_call(self, *args):
+    def stage_call(self, *args, **kw):
         leaves, _spec = jp._flatten(args)
         if self.key not in seen or any(
                 t is not None and t.device.type != "cpu" for t in leaves):
             seen.add(self.key)
-            return call(self, *args)
+            return call(self, *args, **kw)
         _RULES["on"] = True
         try:
             with _CaptureRules(self.key):
-                return call(self, *args)
+                return call(self, *args, **kw)
         finally:
             _RULES["on"] = False
 

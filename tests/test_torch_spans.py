@@ -5,11 +5,17 @@ profiler.  The spans name the host work the card waits on; they must not
 change a proof's bytes, the stage collection, or cost a
 `record_function` without a profiler.  The spans of uploads, fetches and
 graph captures exist only on the card: proverbench/tests/
-test_proverbench_spans.py holds them there.  About 25 s, most of it the
-profiled prove and reading its trace back."""
+test_proverbench_spans.py holds them there.  Last, the benchmark's
+readers of the u32 ALU chips' spans and ranges
+(proverbench/metrics/alu_*.py) on synthetic events.  About 25 s, most of
+it the profiled prove and reading its trace back."""
 
 import hashlib
+import importlib.util
 import json
+import sys
+import types
+from pathlib import Path
 
 import pytest
 import torch
@@ -43,6 +49,9 @@ PROVE_SPANS = ("prove: setup", "prove: preprocessed traces",
 HOST_SPANS = ("execute: native core", "execute: op logs",
               "execute: range checks", "poseidon: permute_host",
               "serialize: to object", "serialize: cbor") + PROVE_SPANS
+# a span for each chip's call inside these stages
+CHIP_SPANS = {"main trace: ": "generate main traces",
+              "quotient: ": "compute quotient polynomial"}
 
 
 def native_machine(name: str):
@@ -133,6 +142,29 @@ def test_span_in_the_trace(runs, name):
         assert name in names
 
 
+@pytest.mark.parametrize("prefix", list(CHIP_SPANS))
+def test_one_chip_span_a_chip_inside_its_stage(runs, prefix):
+    """A profiled prove opens one range `prefix` + chip for each chip that
+    runs a stage function there (every chip's quotient; the main trace of
+    each chip with a device trace builder), each inside its stage's range,
+    but for the last chip (byte): the stage keeps its run, so that the
+    stage's own range on the card's timeline ends with its last replay.
+    With no profiler it opens none."""
+    m, _stages, _blob, host, _calls = runs["profiled"]
+    chips = m.chips()
+    staged = [c for c in chips if prefix == "quotient: "
+              or c.device_trace_inputs(m) is not None]
+    assert chips[-1].name == "byte" and chips[-1] in staged
+    ranges = [(s, e, n) for s, e, n in host if n.startswith(prefix)]
+    assert sorted(n for _s, _e, n in ranges) == sorted(
+        f"{prefix}{c.name}" for c in staged[:-1])
+    assert len(ranges) == (14 if prefix == "quotient: " else 10)
+    (s0, e0), = [(s, e) for s, e, n in host if n == CHIP_SPANS[prefix]]
+    assert all(s0 <= s and e <= e0 for s, e, _n in ranges)
+    _stages, _blob, entered = runs["plain"]
+    assert not [n for n in entered if n.startswith(prefix)]
+
+
 def test_permute_host_spans_count_the_permutations(runs):
     """One span "poseidon: permute_host" for every host permutation."""
     _m, _stages, _blob, host, calls = runs["profiled"]
@@ -189,3 +221,101 @@ def test_span_nests_and_passes_exceptions():
         assert names.count(n) == 1
     assert not torch.autograd._profiler_enabled()
 
+
+# -- the benchmark's readers of the u32 ALU chips ---------------------------
+
+BENCH = Path(__file__).resolve().parents[1] / "proverbench"
+ALU_CHIPS = ("add_u32", "sub_u32", "mul_u32", "div_u32", "shift_u32",
+             "lt_u32", "com_u32", "bitwise_u32")
+
+
+@pytest.fixture(scope="module")
+def bench():
+    """proverbench's `spec` and `roofline`, and its `trace` module (loaded
+    by path: the standard library has a module of that name)."""
+    if str(BENCH) not in sys.path:
+        sys.path.append(str(BENCH))
+    import roofline
+    import spec
+
+    loader = importlib.util.spec_from_file_location("proverbench_trace",
+                                                    BENCH / "trace.py")
+    trace = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(trace)
+    return types.SimpleNamespace(spec=spec, roofline=roofline, trace=trace)
+
+
+def _alu_window(bench, with_spans: bool = True):
+    """A traced window of two proves of sha2_chain.seg21: in each, the
+    trace inputs of cpu, bitwise_u32 and shift_u32 on the host, and on the
+    card the main traces of cpu and bitwise_u32 and the quotients of cpu
+    and shift_u32, each a range around one kernel; without `with_spans`
+    (a program without the spans) only the jobs' ranges and the kernels."""
+    us = 1e6
+    X = lambda cat, name, s, d: {"ph": "X", "cat": cat, "name": name,
+                                 "ts": s * us, "dur": d * us}
+    events = [X("user_annotation", bench.trace.WINDOW, 0.0, 20.0)]
+    for j0 in (0.0, 10.0):
+        events += [X("user_annotation", "job: prove", j0 + 1.0, 8.0),
+                   X("kernel", "build_trace", j0 + 2.0, 0.5),
+                   X("kernel", "build_trace", j0 + 2.5, 0.25),
+                   X("kernel", "constraint_eval", j0 + 4.0, 1.0),
+                   X("kernel", "constraint_eval", j0 + 5.0, 0.375)]
+        if with_spans:
+            events += [
+                X("user_annotation", "trace inputs: cpu", j0 + 1.0, 0.5),
+                X("user_annotation", "trace inputs: bitwise_u32", j0 + 1.5,
+                  0.25),
+                X("user_annotation", "trace inputs: shift_u32", j0 + 1.75,
+                  0.125),
+                X("gpu_user_annotation", "main trace: cpu", j0 + 2.0, 0.5),
+                X("gpu_user_annotation", "main trace: bitwise_u32", j0 + 2.5,
+                  0.25),
+                X("gpu_user_annotation", "quotient: cpu", j0 + 4.0, 1.0),
+                X("gpu_user_annotation", "quotient: shift_u32", j0 + 5.0,
+                  0.375)]
+    c = bench.spec.cell(bench.spec.benchmark(), "sha2_chain.seg21")
+    return types.SimpleNamespace(cell=c, jobs=[None, None],
+                                 trace=bench.trace.Trace(events))
+
+
+def _alu_bound(bench, size: dict) -> float:
+    """roofline.quotient_bound's least seconds for the u32 ALU chips."""
+    return bench.roofline.quotient_bound(
+        {"chips": {k: size["chips"][k] for k in ALU_CHIPS}})[0]
+
+
+# per prove; the roofline (None): 100 × the ALU chips' bound over the
+# shift_u32 kernel's 0.375 s
+ALU_METRICS = {
+    "alu_trace_inputs_ms": 375.0,  # bitwise_u32 250 + shift_u32 125
+    "alu_traces_busy_ms": 250.0,  # bitwise_u32's kernel
+    "alu_quotient_busy_ms": 375.0,  # shift_u32's kernel
+    "alu_quotient_roofline": None,
+}
+
+
+@pytest.mark.parametrize("name", list(ALU_METRICS))
+def test_alu_metric_reads_synthetic_spans(bench, name):
+    """Each reader sums the u32 ALU chips' spans or ranges and leaves the
+    other chips' out, per prove; without the spans it returns None."""
+    ctx = _alu_window(bench)
+    want = ALU_METRICS[name]
+    if want is None:
+        want = 100.0 * _alu_bound(bench, ctx.cell.size) / 0.375
+    read = bench.spec.metric_reader(name)
+    assert read(ctx) == pytest.approx(want)
+    assert read(_alu_window(bench, with_spans=False)) is None
+
+
+def test_alu_quotient_roofline_counts_only_the_alu_chips(bench):
+    """The ALU roofline's bound is quotient_bound of the u32 ALU chips
+    alone: less than the whole configuration's, and more than any one
+    chip's at height."""
+    size = _alu_window(bench).cell.size
+    alu = _alu_bound(bench, size)
+    assert alu < bench.roofline.quotient_bound(size)[0]
+    for chip in ("bitwise_u32", "shift_u32", "add_u32"):
+        one = bench.roofline.quotient_bound(
+            {"chips": {chip: size["chips"][chip]}})[0]
+        assert 0 < one < alu

@@ -204,18 +204,22 @@ def _unflatten(leaves, spec):
 
 
 class Stage:
-    """A stage function under its key (see the module docstring)."""
+    """A stage function under its key (see the module docstring).  A call
+    with a `label` runs the function, or replays the graph, inside a span
+    of that name; the copies into the graph's static inputs stay under the
+    enclosing range."""
 
     def __init__(self, key: tuple, fn):
         self.key = key
         self.fn = fn
 
-    def __call__(self, *args):
+    def __call__(self, *args, label: str | None = None):
         STAGE_LOG.append(self.key)
         leaves, spec = _flatten(args)
         dev = next(t.device for t in leaves if t is not None)
         if dev.type != "cuda":
-            return self.fn(*args)
+            with span(label):
+                return self.fn(*args)
         producers = tuple(None if t is None else _OUTPUT_OF.get(id(t))
                           for t in leaves)
         gkey = (_LAST[0], self.key, producers)
@@ -227,7 +231,8 @@ class Stage:
             for static, a in zip(g.inputs, leaves):
                 if a is not None and a is not static:
                     static.copy_(a)
-            g.replay()
+            with span(label):
+                g.replay()
         _LAST[0] = g.uid
         return _unflatten(g.outputs, g.out_spec)
 
@@ -1331,7 +1336,16 @@ def _prove(machine, config, mk) -> MachineProof:
         prep_shapes = [tuple(int(x) for x in p.shape) for p in prep_host]
     heights = []
 
-    def one_trace(c):
+    def chip_span(layer, ci):
+        """The span of chip ci's run or replay inside a stage ("main
+        trace: cpu"), or None for the last chip: a profiler gives each
+        device operation to the innermost range open at its launch and
+        draws a range on the card's timeline from the first operation it
+        holds to the last, so the stage keeps its last replay and its own
+        range still covers all its work."""
+        return None if ci == len(chips) - 1 else f"{layer}: {chips[ci].name}"
+
+    def one_trace(ci, c):
         with span(f"trace inputs: {c.name}"):
             dti = c.device_trace_inputs(machine)
             t = (np.asarray(c.generate_trace(machine), dtype=np.uint32)
@@ -1343,10 +1357,11 @@ def _prove(machine, config, mk) -> MachineProof:
         heights.append(int(meta[1]))
         fn = _trace_stage(machine, c, tuple(tuple(x.shape) for x in inputs),
                           meta, mk)
-        return fn(*[_upload(x, dev) for x in inputs])
+        return fn(*[_upload(x, dev) for x in inputs],
+                  label=chip_span("main trace", ci))
 
     with stage("generate main traces"):
-        main_traces = [one_trace(c) for c in chips]
+        main_traces = [one_trace(ci, c) for ci, c in enumerate(chips)]
     if mk is None:
         heights = [int(t.shape[0]) for t in main_traces]
     main_shapes = [(h, int(t.shape[1])) for h, t in zip(heights,
@@ -1443,7 +1458,7 @@ def _prove(machine, config, mk) -> MachineProof:
         fn = _quotient_stage(machine, chip, log_degrees[ci], qds[ci],
                              shapes_q, shift, log_blowup, mk)
         return fn(prep_lde, main_ldes[ci], perm_ldes[ci], ch_arr, alpha_arr,
-                  _upload(cs_host[ci], dev))
+                  _upload(cs_host[ci], dev), label=chip_span("quotient", ci))
 
     with stage("compute quotient polynomial"):
         quotient_mats = [quotient_one(ci, c) for ci, c in enumerate(chips)]

@@ -6,7 +6,8 @@ Counterpart of valida_tpu/utils.py.  The Rust prover marks its stages with
 range under the same names, visible in a `torch.profiler` trace on the
 timeline of the device's kernels and copies.  `span(name)` is the same
 range for host work that is no stage (execution, trace inputs, uploads,
-fetches, host permutations, graph captures, serialization): it stays out
+fetches, host permutations, graph captures, serialization) or for one
+chip's part of a stage (its main trace, its quotient): it stays out
 of the stage log and the collection, and never waits for the GPU.  Both
 open their range only while a profiler runs; without one a stage or span
 costs one check.  `set_trace(True)` prints each stage's host wall-clock as
@@ -59,9 +60,10 @@ def stop_stage_collection() -> dict:
 class span:
     """A host span: `with span(name):` opens a profiler range of that name
     while a profiler runs, and does nothing else.  Names say the layer
-    first ("execute: native core", "trace inputs: cpu", "upload", "fetch",
-    "poseidon: permute_host", "prove: transcript", "capture: lde",
-    "serialize: cbor")."""
+    first ("execute: native core", "trace inputs: cpu", "main trace: cpu",
+    "quotient: cpu", "upload", "fetch", "poseidon: permute_host", "prove:
+    transcript", "capture: lde", "serialize: cbor"); `span(None)` opens
+    nothing."""
 
     __slots__ = ("name", "_range")
 
@@ -70,7 +72,7 @@ class span:
         self._range = None
 
     def __enter__(self):
-        if _PROFILING():
+        if self.name is not None and _PROFILING():
             self._range = torch.profiler.record_function(self.name)
             self._range.__enter__()
 
