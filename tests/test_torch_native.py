@@ -230,6 +230,36 @@ def test_fib_proof_from_array_mode():
     assert hashlib.sha256(blob).hexdigest() == chip_smoke.BASIC_GOLDEN["n"]
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_array_mode_mem_rows_and_range_counts_match_list_mode(machines, name):
+    """Array mode sorts the memory rows and counts their delta limbs in
+    the C++ routine (native/memsort.cpp), list mode in numpy: the range
+    chip's counts and the memory chip's trace inputs are the same, word
+    for word."""
+    _, lists, arrays = machines[name]
+    assert arrays.mem().ops_arrays is not None
+    assert lists.mem().ops_arrays is None
+    assert arrays.range().count == lists.range().count
+    got, got_meta = arrays.mem().device_trace_inputs(arrays)
+    want, want_meta = lists.mem().device_trace_inputs(lists)
+    assert got_meta == want_meta
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype == np.uint32
+        np.testing.assert_array_equal(g, w)
+
+
+def test_fib_proof_from_list_mode():
+    """fib(25) interpreted in list mode (the memory rows sorted in numpy)
+    proves into the same bytes as in array mode: chip_smoke.py's pin for
+    path (n)."""
+    import chip_smoke
+
+    m = port_native("fib", True)
+    proof = m.prove(config.default_config(device="cpu"))
+    blob = serde.serialize_proof(proof)
+    assert hashlib.sha256(blob).hexdigest() == chip_smoke.BASIC_GOLDEN["n"]
+
+
 def _jalv_machine():
     """A BasicMachine whose JALV reads the cell it wrote in the same
     cycle (tests/test_interpreter.py's program)."""
@@ -286,9 +316,9 @@ def test_no_fallback_when_the_library_is_unavailable(monkeypatch, tmp_path):
 
 def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
     """g++ compiles valida_tpu_torch/native/interpreter.cpp (not the JAX
-    package's copy) and native/poseidon.cpp into one library in
-    build/valida_tpu_torch/, to a file named by a hash of the sources and
-    the flags, written whole and then renamed."""
+    package's copy), native/poseidon.cpp and native/memsort.cpp into one
+    library in build/valida_tpu_torch/, to a file named by a hash of the
+    sources and the flags, written whole and then renamed."""
     import subprocess
     from pathlib import Path
 
@@ -297,8 +327,10 @@ def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
     pkg = Path(valida_tpu_torch.__file__).resolve().parent
     assert native_build.SRC == pkg / "native" / "interpreter.cpp"
     assert native_build.POSEIDON_SRC == pkg / "native" / "poseidon.cpp"
+    assert native_build.MEMSORT_SRC == pkg / "native" / "memsort.cpp"
     assert native_build.sources() == (native_build.SRC,
-                                      native_build.POSEIDON_SRC)
+                                      native_build.POSEIDON_SRC,
+                                      native_build.MEMSORT_SRC)
     assert native_build.BUILD_DIR == pkg.parent / "build" / "valida_tpu_torch"
     assert native_build.SRC.read_bytes() != (
         pkg.parent / "valida_tpu" / "native" / "interpreter.cpp").read_bytes()
@@ -315,17 +347,20 @@ def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
     assert lib == native_build.target() and lib.parent == tmp_path
     assert [p.name for p in tmp_path.iterdir()] == [lib.name]
     (cmd,) = commands
-    assert cmd[0] == "g++" and cmd[-2:] == [str(native_build.SRC),
-                                            str(native_build.POSEIDON_SRC)]
+    assert cmd[0] == "g++" and cmd[-3:] == [
+        str(src) for src in native_build.sources()]
     assert native_build.build() == lib and len(commands) == 1
 
 
-@pytest.mark.parametrize("name", ["SRC", "POSEIDON_SRC"])
+SOURCES = ["SRC", "POSEIDON_SRC", "MEMSORT_SRC"]
+
+
+@pytest.mark.parametrize("name", SOURCES)
 def test_changing_either_source_changes_the_target(monkeypatch, tmp_path,
                                                     name):
-    """The library's name hashes every source: an edit to either one
-    names another library, so a stale build never loads."""
-    for attr in ("SRC", "POSEIDON_SRC"):
+    """The library's name hashes every source: an edit to any one names
+    another library, so a stale build never loads."""
+    for attr in SOURCES:
         copy = tmp_path / getattr(native_build, attr).name
         copy.write_bytes(getattr(native_build, attr).read_bytes())
         monkeypatch.setattr(native_build, attr, copy)

@@ -5,14 +5,16 @@ the benchmark builds a job (`spec.job_program`): the port's execution
 (`run_native(build_lists=False)`) equals the benchmark's plain
 interpreter, its digest equals `hashlib.sha256` iterated, every seed gives
 the same chip heights, and one `prove_jit` under the configuration's proof
-profile is accepted by the port's verifier and by the benchmark's judge.
-About 25 s, most of it the prove."""
+profile is accepted by the port's verifier and by the benchmark's judge;
+executed in list mode, the job gives the same range counts, memory rows
+and proof bytes.  About 35 s, most of it the two proves."""
 
 import hashlib
 import struct
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -96,24 +98,75 @@ def test_seeds_give_the_frozen_heights(cell):
     assert want["bitwise_u32"] >= 12 and want["shift_u32"] >= 12
 
 
-def test_prove_accepted_by_the_port_and_the_judge(cell):
-    """One job's `prove_jit` under the configuration's profile: the
-    port's verifier accepts it, the benchmark's judge accepts its bytes,
-    and its chip heights are the frozen ones."""
+def _list_mode(instructions, fp):
+    """port.execute's machine with the op logs as Python lists and dicts
+    (`run_native(build_lists=True)`): the memory rows sorted and their
+    delta limbs counted by the numpy version, not native/memsort.cpp."""
+    from valida_tpu_torch.core import opcodes as OC
+    from valida_tpu_torch.core.program import (InstructionWord, Operands,
+                                               ProgramROM)
+    from valida_tpu_torch.machine.basic import BasicMachine
+
+    m = BasicMachine()
+    m.program().set_program_rom(ProgramROM([
+        InstructionWord(getattr(OC, op), Operands(tuple(ops)))
+        for op, ops in instructions]))
+    m.cpu().fp = fp
+    m.run_native(build_lists=True)
+    return m
+
+
+@pytest.fixture(scope="module")
+def proved(cell):
+    """{"arrays": machine, "lists": machine, "cfg": config, "instructions":
+    the job's program, "bytes": {mode: the proof's bytes}} for one job
+    (SEEDS[2]) executed in array mode (as the benchmark does) and in list
+    mode, each proved by `prove_jit` under the configuration's profile and
+    the array mode's proof verified by the port."""
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        instructions, m = _job(cell, SEEDS[2])
-        profile = cell.config["profile"]
-        cfg = port.prover_config(profile, "cpu")
-        proof = port.prove(m, cfg)
-        m.verify(cfg, proof)
-        data = port.serialize(proof, cfg)
+        instructions, arrays = _job(cell, SEEDS[2])
+        lists = _list_mode(instructions, int(cell.program["fp"]))
+        cfg = port.prover_config(cell.config["profile"], "cpu")
+        out = {"arrays": arrays, "lists": lists, "cfg": cfg,
+               "instructions": instructions, "bytes": {}}
+        for mode in ("arrays", "lists"):
+            proof = port.prove(out[mode], cfg)
+            if mode == "arrays":
+                out[mode].verify(cfg, proof)
+                out["heights"] = {
+                    chip.name: int(cp.log_degree)
+                    for chip, cp in zip(arrays.chips(), proof.chip_proofs)}
+            out["bytes"][mode] = port.serialize(proof, cfg)
     finally:
         torch.set_num_threads(threads)
-    assert verify.judge(data, instructions, int(cell.program["fp"]),
-                        profile) is None
-    heights = {chip.name: int(cp.log_degree)
-               for chip, cp in zip(m.chips(), proof.chip_proofs)}
-    assert heights == {k: v["log_height"]
-                       for k, v in cell.size["chips"].items()}
+    return out
+
+
+def test_prove_accepted_by_the_port_and_the_judge(cell, proved):
+    """One job's `prove_jit` under the configuration's profile: the
+    port's verifier accepts it, the benchmark's judge accepts its bytes,
+    and its chip heights are the frozen ones."""
+    assert verify.judge(proved["bytes"]["arrays"], proved["instructions"],
+                        int(cell.program["fp"]),
+                        cell.config["profile"]) is None
+    assert proved["heights"] == {k: v["log_height"]
+                                 for k, v in cell.size["chips"].items()}
+
+
+def test_list_mode_gives_the_same_range_counts_rows_and_proof(proved):
+    """The job in list mode (memory rows sorted and counted in numpy)
+    against array mode (in native/memsort.cpp): the same range chip
+    counts, the same memory trace inputs word for word and the same proof
+    bytes."""
+    arrays, lists = proved["arrays"], proved["lists"]
+    assert arrays.mem().ops_arrays is not None
+    assert lists.mem().ops_arrays is None
+    assert arrays.range().count == lists.range().count
+    got, got_meta = arrays.mem().device_trace_inputs(arrays)
+    want, want_meta = lists.mem().device_trace_inputs(lists)
+    assert got_meta == want_meta
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+    assert proved["bytes"]["lists"] == proved["bytes"]["arrays"]

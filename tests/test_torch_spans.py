@@ -3,13 +3,15 @@ execution by the C++ core, one `prove_jit` and one serialization of a
 golden program profiled under `torch.profiler`, and the same three with no
 profiler.  The spans name the host work the card waits on; they must not
 change a proof's bytes, the stage collection, or cost a
-`record_function` without a profiler.  The spans of uploads, fetches and
+`record_function` without a profiler; the memory chip's sort runs inside
+"execute: range checks".  The spans of uploads, fetches and
 graph captures exist only on the card: proverbench/tests/
 test_proverbench_spans.py holds them there.  Last, the benchmark's
 readers of the u32 ALU chips' spans and ranges
 (proverbench/metrics/alu_*.py) on synthetic events.  About 25 s, most of
 it the profiled prove and reading its trace back."""
 
+import contextlib
 import hashlib
 import importlib.util
 import json
@@ -28,6 +30,7 @@ from valida_tpu_torch.core import config
 from valida_tpu_torch.core.program import ProgramROM
 from valida_tpu_torch.crypto import challenger, poseidon
 from valida_tpu_torch.machine import examples
+from valida_tpu_torch.machine import basic
 from valida_tpu_torch.machine import jit_prover as jp
 from valida_tpu_torch.machine.basic import BasicMachine
 from valida_tpu_torch.tooling.serde import serialize_proof
@@ -54,9 +57,8 @@ CHIP_SPANS = {"main trace: ": "generate main traces",
               "quotient: ": "compute quotient polynomial"}
 
 
-def native_machine(name: str):
-    """The golden program's BasicMachine after `run_native`, op logs as
-    arrays (as the benchmark executes its jobs)."""
+def loaded_machine(name: str):
+    """The golden program's BasicMachine, loaded and not yet run."""
     rows, fp, static = program(name)
     m = BasicMachine()
     m.program().set_program_rom(ProgramROM(
@@ -64,6 +66,13 @@ def native_machine(name: str):
     for addr, value in (static or {}).items():
         m.static_data().write(addr, value)
     m.cpu().fp = fp
+    return m
+
+
+def native_machine(name: str):
+    """The golden program's BasicMachine after `run_native`, op logs as
+    arrays (as the benchmark executes its jobs)."""
+    m = loaded_machine(name)
     m.run_native(build_lists=False)
     return m
 
@@ -163,6 +172,31 @@ def test_one_chip_span_a_chip_inside_its_stage(runs, prefix):
     assert all(s0 <= s and e <= e0 for s, e, _n in ranges)
     _stages, _blob, entered = runs["plain"]
     assert not [n for n in entered if n.startswith(prefix)]
+
+
+def test_range_checks_span_holds_the_memory_sort(runs, monkeypatch):
+    """A profiled execution opens "execute: range checks" once; and the
+    memory chip's sort (its rows, made with the range counts) runs inside
+    that span: the rows are not there when it opens and are when it
+    closes, so no part of it moves out of the measured stretch."""
+    _m, _stages, _blob, host, _calls = runs["profiled"]
+    assert sum(n == "execute: range checks" for _s, _e, n in host) == 1
+    m = loaded_machine(GOLDEN)
+    seen = []
+    span = basic.span
+
+    @contextlib.contextmanager
+    def watched(name):
+        seen.append((name, "open", m.mem()._rows_cache is not None))
+        with span(name):
+            yield
+        seen.append((name, "closed", m.mem()._rows_cache is not None))
+
+    monkeypatch.setattr(basic, "span", watched)
+    m.run_native(build_lists=False)
+    assert seen == [("execute: range checks", "open", False),
+                    ("execute: range checks", "closed", True)]
+    assert m.mem().ops_arrays is not None
 
 
 def test_permute_host_spans_count_the_permutations(runs):

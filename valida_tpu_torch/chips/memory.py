@@ -1,9 +1,11 @@
 """Memory chip: read/write log, (addr, clk)-sorted trace, memory-bus
 receives, and the ENABLED ordering/consistency argument.
 
-Counterpart of valida_tpu/chips/memory.py.  The sort and the range
-assertion run on the host (numpy); the trace is built from the sorted
-rows by torch operations on the prover's device.
+Counterpart of valida_tpu/chips/memory.py.  The sort, the range
+assertion and the range-limb counts run on the host: in one C++ call
+(native/memsort.cpp) for an op log from the native core, in numpy (the
+plain version) for a dict log; the trace is built from the sorted rows by
+torch operations on the prover's device.
 
 The reference's memory AIR is fully commented out and its dummy-read
 machinery disabled (`memory/src/stark.rs:22-78`, `memory/src/lib.rs:
@@ -177,16 +179,14 @@ class MemoryChip(Chip):
 
         kind: 0 = dummy, 1 = read, 2 = write, 3 = static initial write.
         The sort is numpy's stable lexsort on the same keys as the JAX
-        package's list sort, so the rows are the same.
+        package's list sort, so the rows are the same.  The plain version
+        of native/memsort.cpp's sort.
         """
-        if self._rows_cache is not None:
-            return self._rows_cache
         mclk, mwrite, maddr, mvalue = self.op_arrays()
         n_static = len(self.static_data)
         n = n_static + len(mclk)
         if n == 0:
-            self._rows_cache = np.zeros((1, 4), dtype=np.int64)
-            return self._rows_cache
+            return np.zeros((1, 4), dtype=np.int64)
         static_addr = np.fromiter(self.static_data.keys(), np.int64, n_static)
         static_value = np.fromiter(self.static_data.values(), np.int64,
                                    n_static)
@@ -203,16 +203,30 @@ class MemoryChip(Chip):
             pad = np.repeat(rows[-1:], n2 - n, axis=0)
             pad[:, 1] = 0
             rows = np.concatenate([rows, pad])
-        self._rows_cache = rows
         return rows
 
+    def _rows_and_counts(self):
+        """(rows, counts): the sorted rows as uint32 [4, n2] columns (clk,
+        kind, addr, value) and the range bus's [256] counts of their
+        delta limbs; raises AssertionError if a delta lies outside [0,
+        2^30).  An op log from the native core (`ops_arrays`) goes to
+        native/memsort.cpp in one call, a dict log to the numpy version."""
+        if self.ops_arrays is not None:
+            from ..native import mem_sort
+
+            return mem_sort(self.static_data, *self.ops_arrays)
+        rows = self._sorted_rows()
+        diff = self._sort_deltas(rows[:, 0], rows[:, 1], rows[:, 2])
+        return (np.ascontiguousarray(rows.T.astype(np.uint32)),
+                self._limb_counts(diff))
+
     def device_trace_inputs(self, machine):
-        arr = self._sorted_rows()  # [n2, 4] clk kind addr value
-        # the range assertion stays on the host (data-dependent; the
-        # builder is branchless and produces the same limbs)
-        self._sort_deltas(arr[:, 0], arr[:, 1], arr[:, 2])
-        n2 = arr.shape[0]
-        return tuple(np.ascontiguousarray(arr.T.astype(np.uint32))), (n2, n2)
+        # the rows of register_range_checks, which asserted their deltas
+        # (the builder is branchless and produces the same limbs)
+        if self._rows_cache is None:
+            self._rows_cache = self._rows_and_counts()[0]
+        n2 = self._rows_cache.shape[1]
+        return tuple(self._rows_cache), (n2, n2)
 
     def build_trace(self, inputs, meta):
         clk, kind, addr, vals = wide(inputs)
@@ -233,7 +247,7 @@ class MemoryChip(Chip):
         # same-clk ordering (module docstring).  The JAX package computes
         # them in wrapping u32 arithmetic; the mask reproduces the wrap
         # (every delta the trace keeps is nonnegative, asserted on the
-        # host in device_trace_inputs).
+        # host with the rows: _rows_and_counts).
         addr_delta = addr[1:] - addr[:-1]
         phase = 1 - is_read - 2 * is_static
         clk_delta = 2 * (clk[1:] - clk[:-1]) + (phase[1:] - phase[:-1])
@@ -253,31 +267,31 @@ class MemoryChip(Chip):
         phase = (1 - (kind == 1).astype(np.int64)
                  - 2 * (kind == 3).astype(np.int64))
         clk_delta = 2 * (clk[1:] - clk[:-1]) + (phase[1:] - phase[:-1])
-        ane = addr_delta != 0
-        diff = np.where(ane, addr_delta, clk_delta)
+        diff = np.where(addr_delta != 0, addr_delta, clk_delta)
         assert (diff >= 0).all() and (diff < (1 << 30)).all(), \
             "sort delta outside the 2^30 range argument"
-        return diff, ane, addr_delta
+        return diff
+
+    @staticmethod
+    def _limb_counts(diff) -> np.ndarray:
+        """int64 [256] range-bus counts of sort deltas `diff` (each below
+        2^30): each delta's three low bytes and 4 times its top byte, and
+        the last row's four zero limbs (it has no transition)."""
+        limbs = [(diff >> (8 * k)) & 0xFF for k in range(3)]
+        limbs.append(4 * ((diff >> 24) & 0xFF))
+        counts = sum(np.bincount(limb, minlength=256) for limb in limbs)
+        counts[0] += 4
+        return counts
 
     def register_range_checks(self, machine):
         """Bump the range chip's multiplicities for this trace's delta
         limbs (called once after execution; the range trace must see the
-        counts before it is generated)."""
-        arr = self._sorted_rows()
-        diff, _ane, _ad = self._sort_deltas(arr[:, 0], arr[:, 1], arr[:, 2])
+        counts before it is generated), and keep the sorted rows for
+        device_trace_inputs."""
+        self._rows_cache, counts = self._rows_and_counts()
         r = machine.range()
-        # the last row's limbs are zero (no transition)
-        for k in range(3):
-            vals, counts = np.unique((diff >> (8 * k)) & 0xFF,
-                                     return_counts=True)
-            for v, c in zip(vals.tolist(), counts.tolist()):
-                r.count[v] = r.count.get(v, 0) + c
-            r.count[0] = r.count.get(0, 0) + 1
-        vals, counts = np.unique(4 * ((diff >> 24) & 0xFF),
-                                 return_counts=True)
-        for v, c in zip(vals.tolist(), counts.tolist()):
-            r.count[v] = r.count.get(v, 0) + c
-        r.count[0] = r.count.get(0, 0) + 1
+        for v in np.flatnonzero(counts).tolist():
+            r.count[v] = r.count.get(v, 0) + int(counts[v])
 
     # -- interactions -------------------------------------------------------
 

@@ -1,6 +1,7 @@
 """ctypes bindings of the native host library: the interpreter core
-(interpreter.cpp) and the challenger's Poseidon permutation (poseidon.cpp,
-called by crypto/poseidon.py's `permute_host`).
+(interpreter.cpp), the challenger's Poseidon permutation (poseidon.cpp,
+called by crypto/poseidon.py's `permute_host`) and the memory chip's sort
+and range-limb counts (memsort.cpp, `mem_sort`).
 
 Counterpart of valida_tpu/native/__init__.py.  `run_native(machine)`
 executes the machine's loaded program with the C++ VM and fills its chips'
@@ -53,6 +54,8 @@ _SIGNATURES = {
     "vm_copy_cells": (None, [_P, _P, _P]),
     "vm_free": (None, [_P]),
     "poseidon16_permute": (None, [_P, _P, _P]),
+    "mem_sort_rows": (ctypes.c_int, [_P, _P, _SIZE, _P, _P, _P, _P, _SIZE,
+                                     _P, _SIZE, _P]),
 }
 
 # kind code -> the CPU log's kind name
@@ -124,6 +127,38 @@ def _copy(lib, vm, fn, *shapes_dtypes):
     arrays = [np.zeros(shape, dtype=dt) for shape, dt in shapes_dtypes]
     getattr(lib, fn)(vm, *(_ptr(a) for a in arrays))
     return arrays
+
+
+def mem_sort(static: dict, clk: np.ndarray, is_write: np.ndarray,
+             addr: np.ndarray, value: np.ndarray):
+    """The memory chip's trace rows and range-bus counts from its static
+    cells ({addr: value}) and its op log in execution order (clk
+    nondecreasing): (rows, counts), rows a uint32 [4, n2] array of columns
+    (clk, kind, addr, value) sorted stably by address and padded to a power
+    of two, counts a uint64 [256] array of the sort deltas' limbs.  Equals
+    `MemoryChip`'s numpy version row for row and bin for bin, and raises
+    its AssertionError if a delta lies outside [0, 2^30)."""
+    lib = library()
+    n_static = len(static)
+    s_addr = np.fromiter(static.keys(), np.uint32, n_static)
+    s_value = np.fromiter(static.values(), np.uint32, n_static)
+    ops = [np.ascontiguousarray(a, dtype=dt) for a, dt in
+           zip((clk, is_write, addr, value),
+               (np.uint32, np.uint8, np.uint32, np.uint32), strict=True)]
+    n_ops = len(ops[0])
+    if any(len(a) != n_ops for a in ops):
+        raise ValueError("mem_sort: op arrays of different lengths")
+    n = n_static + n_ops
+    if n >= 1 << 32:
+        raise ValueError(f"mem_sort: {n} rows, more than 32-bit row indices")
+    n2 = 1 << max(n - 1, 0).bit_length()
+    rows = np.empty((4, n2), dtype=np.uint32)
+    counts = np.zeros(256, dtype=np.uint64)
+    if lib.mem_sort_rows(_ptr(s_addr), _ptr(s_value), n_static,
+                         *(_ptr(a) for a in ops), n_ops, _ptr(rows), n2,
+                         _ptr(counts)) != 0:
+        raise AssertionError("sort delta outside the 2^30 range argument")
+    return rows, counts
 
 
 def run_native(machine, max_steps: int = 1 << 32, build_lists: bool = True,

@@ -1,5 +1,6 @@
 """Build the native host library with g++: the interpreter core
-(interpreter.cpp) and the challenger's Poseidon permutation (poseidon.cpp).
+(interpreter.cpp), the challenger's Poseidon permutation (poseidon.cpp) and
+the memory chip's sort and range-limb counts (memsort.cpp).
 
     python -m valida_tpu_torch.native.build
 
@@ -20,14 +21,15 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "interpreter.cpp"
 POSEIDON_SRC = SRC.parent / "poseidon.cpp"
+MEMSORT_SRC = SRC.parent / "memsort.cpp"
 BUILD_DIR = SRC.parents[2] / "build" / "valida_tpu_torch"
 FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
-def sources() -> tuple[Path, Path]:
+def sources() -> tuple[Path, Path, Path]:
     """The library's sources (the module's paths as they are at the call,
     so that a path replaced by a test is the one built and hashed)."""
-    return SRC, POSEIDON_SRC
+    return SRC, POSEIDON_SRC, MEMSORT_SRC
 
 
 def target() -> Path:

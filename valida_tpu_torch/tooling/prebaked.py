@@ -6,10 +6,11 @@ Counterpart of the role of valida_tpu/tooling/prebaked.py, which ships XLA
 caches for the multi-device dry run.  The port compiles no graphs ahead of
 time; its one-time costs are the builds of the CUDA kernels (nvcc, one
 library per csrc/*.cu source, `_build.build_all`) and of the native host
-library (g++, `native/build.py`: the interpreter core and the challenger's
-Poseidon permutation).  Both go to build/valida_tpu_torch/ under names made
-from a hash of the sources and the flags, so a stale artefact is never
-loaded: a changed source builds anew.
+library (g++, `native/build.py`: the interpreter core, the challenger's
+Poseidon permutation and the memory chip's sort).  Both go to
+build/valida_tpu_torch/ under names made from a hash of the sources and
+the flags, so a stale artefact is never loaded: a changed source builds
+anew.
 Nothing prebuilt is kept in the repository.
 """
 
