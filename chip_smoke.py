@@ -119,8 +119,8 @@ Builds the kernels from valida_tpu_torch/csrc with nvcc on first use, then:
    (k) runs the debug checks and (j) does not);
    then, on a one-rank NCCL process group (`make_mesh(1)`), the
    distributed staged prover: (jm) (j)'s machine and config by
-   `warmup_jit(mesh=)` (its stage calls == `warmup_jit(mesh=, dry=True)`'s
-   count) and `prove_jit(mesh=)`: its bytes == (j)'s by SHA-256, its roots
+   `warmup_jit(mesh=)` and `prove_jit(mesh=)`: its stage calls == the
+   warm-up's, its bytes == (j)'s by SHA-256, its roots
    == (h)'s pins, the verifier and the two tampers, no capture and no
    eager collective in a warm prove, timed as (j) beside it, its warm
    prove's kernel runs on the device and counted launches == its eager
@@ -2452,7 +2452,6 @@ def main() -> int:
             mesh = pmesh.make_mesh(1)
             what = ("basic (jm) ALU loop 2^20 cycles by arrays, staged, "
                     "one-rank NCCL mesh")
-            dry = jit_prover.warmup_jit(machine, cfg, dry=True, mesh=mesh)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -2471,12 +2470,8 @@ def main() -> int:
                      for k, n in launches["jm warmup"].items()}
             eager_runs = {k: n - table_setup["runs"][k]
                           for k, n in device_runs.items()}
-            if n_calls != dry:
-                raise RuntimeError(f"{what}: warmup_jit called {n_calls} "
-                                   f"stages, warmup_jit(dry=True) counts "
-                                   f"{dry}")
             log(f"{what}: warmup_jit (kernel calls recorded) in {t_warm:.1f}"
-                f" s: {n_calls} stage calls == dry count, "
+                f" s: {n_calls} stage calls, "
                 f"{jit_prover.stats['captures'] - captures} graphs captured;"
                 f" memory peak "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
@@ -2491,6 +2486,10 @@ def main() -> int:
                 what, *MESH_KERNELS["jm"],
                 lambda: jit_prover.prove_jit(machine, cfg, mesh=mesh))
             coll = {k: dist_ntt.COLLECTIVES[k] - n for k, n in coll.items()}
+            if len(jit_prover.STAGE_LOG) != n_calls:
+                raise RuntimeError(f"{what}: warmup_jit called {n_calls} "
+                                   f"stages, the warm prove_jit "
+                                   f"{len(jit_prover.STAGE_LOG)}")
             if jit_prover.stats["captures"] != captures or coll["eager"]:
                 raise RuntimeError(
                     f"{what}: a warm prove captured "
@@ -2506,7 +2505,8 @@ def main() -> int:
                 raise RuntimeError(f"{what}: preprocessed and main roots "
                                    f"{roots}, the JAX package's {H_ROOTS}")
             machine.verify(cfg, proof)
-            log(f"{what}: no graph captured, sha256 == (j)'s {want_sha}, "
+            log(f"{what}: no graph captured, {n_calls} stage calls as in "
+                f"warmup_jit, sha256 == (j)'s {want_sha}, "
                 f"roots == JAX package's, verified on the host; collectives "
                 f"a warm prove: {coll['eager']} eager, {coll['replayed']} "
                 f"inside its graphs")

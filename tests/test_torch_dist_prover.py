@@ -94,8 +94,8 @@ def _config(name):
 
 def _rank_cases(world, names):
     """Run in each rank: every named case by prove_jit on a (1, world)
-    mesh -> {name: its bytes, stage calls, warmup_jit(dry=True)'s count,
-    whether dist_dif takes its tallest trace}."""
+    mesh -> {name: its bytes, its stage keys in call order, whether
+    dist_dif takes its tallest trace}."""
     if "jax" in sys.modules:
         raise RuntimeError("a rank imported jax")
     mesh = make_mesh(world, device="cpu")
@@ -104,8 +104,7 @@ def _rank_cases(world, names):
         m, cfg = _machine(CASES[name][0]), _config(name)
         proof = jp.prove_jit(m, cfg, mesh=mesh)
         out[name] = dict(
-            blob=serialize_proof(proof), calls=len(jp.STAGE_LOG),
-            dry=jp.warmup_jit(m, cfg, dry=True, mesh=mesh),
+            blob=serialize_proof(proof), keys=list(jp.STAGE_LOG),
             applies=dist_ntt.dist_dif_applies(
                 max(cp.log_degree for cp in proof.chip_proofs), mesh))
     if world == 2:
@@ -119,26 +118,22 @@ def _rank_cases(world, names):
 def one_rank_mesh_prove():
     """Run in one gloo rank: the golden fixture's machine and config
     (tests/fixtures/mini_proof_v1.cbor) by prove_jit and warmup_jit on a
-    one-rank mesh -> (the proof's bytes, its stage keys, the mesh plan's
-    keys, warmup_jit's counts dry and not, the errors of a row axis the
-    mesh lacks)."""
+    one-rank mesh -> (the proof's bytes, its stage keys, warmup_jit's
+    count and stage keys, the errors of a row axis the mesh lacks)."""
     mesh = make_mesh(1, device="cpu")
     m = examples.random_mini_machine(48, seed=3)
     cfg = default_config(num_queries=3, proof_of_work_bits=1, device="cpu")
     blob = serialize_proof(jp.prove_jit(m, cfg, mesh=mesh))
     keys = list(jp.STAGE_LOG)
-    plan = jp._plan(m, cfg, ("mesh", 1, "sp"))
-    counts = (jp.warmup_jit(m, cfg, dry=True, mesh=mesh),
-              jp.warmup_jit(m, cfg, mesh=mesh))
+    warm = (jp.warmup_jit(m, cfg, mesh=mesh), list(jp.STAGE_LOG))
     errors = []
     for call in (lambda: jp.prove_jit(m, cfg, mesh=mesh, row_axis="tp"),
-                 lambda: jp.warmup_jit(m, cfg, dry=True, mesh=mesh,
-                                       row_axis="tp")):
+                 lambda: jp.warmup_jit(m, cfg, mesh=mesh, row_axis="tp")):
         try:
             call()
         except ValueError as e:
             errors.append(str(e))
-    return blob, keys, plan, counts, errors
+    return blob, keys, warm, errors
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -233,9 +228,9 @@ def reference_verify(name, blob) -> None:
 def test_mesh_prove_is_the_single_device_proof(ranks, single, world, name):
     """Every rank's bytes are the same, the port's single-device
     prove_jit's and the JAX package's (its digest made live, and pinned);
-    its verifier accepts them;
-    warmup_jit(dry=True) counts the mesh prove's stage calls; and the
-    tallest trace takes the distributed NTT."""
+    its verifier accepts them; every rank called the same stages in the
+    same order (a collective inside a captured graph needs every rank to
+    replay it); and the tallest trace takes the distributed NTT."""
     blob_of, verify = single
     per_rank = [r[name] for r in ranks(world)]
     blob = per_rank[0]["blob"]
@@ -243,7 +238,7 @@ def test_mesh_prove_is_the_single_device_proof(ranks, single, world, name):
     assert blob == blob_of(name)
     assert hashlib.sha256(blob).hexdigest() == reference_digest(name)
     assert PINS[name] == reference_digest(name)
-    assert all(r["calls"] == r["dry"] for r in per_rank)
+    assert all(r["keys"] == per_rank[0]["keys"] for r in per_rank)
     assert all(r["applies"] for r in per_rank)
     verify(name, blob)
 

@@ -34,7 +34,7 @@ from valida_tpu_torch.machine import jit_prover as jp
 from valida_tpu_torch.machine.machine import Machine
 from valida_tpu_torch.parallel.dryrun import run_ranks
 from valida_tpu_torch.tooling.cli import main as cli_main
-from valida_tpu_torch.tooling.serde import serialize_proof
+from valida_tpu_torch.tooling.serde import deserialize_proof, serialize_proof
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -176,25 +176,25 @@ def test_prove_jit_bytes(jit_proofs, case):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_warmup_dry_enumerates_the_prove_stages(jit_proofs, case):
-    """warmup_jit(dry=True) counts, and _plan lists in call order, exactly
-    the stage keys prove_jit called, from the shapes alone."""
+def test_repeat_prove_calls_the_same_stages(jit_proofs, case):
+    """warmup_jit returns the number of stage calls of one prove, and a
+    later prove of a fresh machine of the same program calls the same
+    stage keys in the same order (the graphs' tree of call sites is keyed
+    by that order)."""
+    make, _cfg, _pin_ = CASES[case]
     m, cfg, _blob, keys = jit_proofs[case]
-    assert jp._plan(m, cfg) == keys
-    assert jp.warmup_jit(m, cfg, dry=True) == len(keys)
+    assert jp.warmup_jit(m, cfg) == len(keys)
+    assert jp.STAGE_LOG == keys
+    jp.prove_jit(make(), cfg)
+    assert jp.STAGE_LOG == keys
 
 
 @pytest.mark.parametrize("tiles, machine", [
-    ({"PERM_CHUNK": 16}, lambda: examples.random_ragged_machine(64, seed=3)),
-    ({"REDUCED_CHUNK": 8, "OPEN_CHUNK": 8},
-     lambda: examples.random_mini_machine(48, seed=2)),
     ({"TREE_FUSE_MAX": 4}, lambda: examples.random_mini_machine(16, seed=5)),
-], ids=["perm", "reduced+open", "tree levels"])
+], ids=["tree levels"])
 def test_chunked_stages_same_proof(monkeypatch, tiles, machine):
-    """Row-tiled stages (the permutation trace with phi carried across
-    tiles; the openings and the reduced openings) and Merkle
-    trees built a stage per level give the one-shot stages' proof, which
-    is the eager prover's."""
+    """Merkle trees built a stage per level give the fused trees' proof,
+    which is the eager prover's."""
     cfg = _cpu_config(num_queries=4, proof_of_work_bits=2)
     m = machine()
     want = serialize_proof(m.prove(cfg))
@@ -204,11 +204,7 @@ def test_chunked_stages_same_proof(monkeypatch, tiles, machine):
     keys_before = set(jp.STAGE_LOG)
     assert serialize_proof(jp.prove_jit(machine(), cfg)) == want
     tiled = set(jp.STAGE_LOG) - keys_before
-    assert {k[0] for k in tiled} >= {
-        {"PERM_CHUNK": "perm", "REDUCED_CHUNK": "red", "OPEN_CHUNK": "open",
-         "TREE_FUSE_MAX": "hashpair"}[k]
-        for k in tiles}
-    assert jp._plan(machine(), cfg) == jp.STAGE_LOG
+    assert "hashpair" in {k[0] for k in tiled}
 
 
 def test_ladder_challenge_stage_matches_host():
@@ -232,30 +228,11 @@ def test_ladder_challenge_stage_matches_host():
         assert state2.tolist() == host.state
 
 
-def test_bufsim_matches_challenger_buffers():
-    """_BufSim follows the host challenger's buffer lengths under random
-    observe and sample sequences."""
-    rng = np.random.default_rng(3)
-    host, sim = DuplexChallenger(), jp._BufSim()
-    for _ in range(500):
-        if rng.integers(0, 2) == 0:
-            n = int(rng.integers(1, 20))
-            for v in rng.integers(0, bb.P, size=n):
-                host.observe(int(v))
-            sim.observe(n)
-        else:
-            n = int(rng.integers(1, 8))
-            for _ in range(n):
-                host.sample()
-            sim.sample(n)
-        assert (len(host.input_buffer), len(host.output_buffer)) == (
-            sim.k, sim.out)
-
-
 def test_ladder_entry_k0_matches_runtime(jit_proofs, monkeypatch):
-    """_ladder_entry_k0 from the shapes (through _plan) is the buffer
-    length the prove found at the ladder's entry; later layers enter
-    with an empty buffer."""
+    """The FRI ladder makes one challenge stage a layer: the first enters
+    with the challenger's pending inputs (fewer than a permutation's
+    width), every later one with an empty buffer; the proof's bytes stay
+    the pinned ones."""
     seen = []
     stage = jp._ladder_challenge_stage
 
@@ -267,8 +244,9 @@ def test_ladder_entry_k0_matches_runtime(jit_proofs, monkeypatch):
     m, cfg, blob, _keys = jit_proofs["fib"]
     assert serialize_proof(jp.prove_jit(m, cfg)) == blob
     monkeypatch.undo()
-    planned = [k[1] for k in jp._plan(m, cfg) if k[0] == "frichal"]
-    assert seen == planned and len(seen) > 1
+    layers = deserialize_proof(blob).opening_proof.fri.commit_phase_commits
+    assert len(seen) == len(layers) > 1
+    assert 0 <= seen[0] < poseidon.WIDTH
     assert set(seen[1:]) == {0}
 
 
@@ -373,15 +351,15 @@ def one_rank_mesh():
 @pytest.mark.parametrize("entry", ["prove_jit", "warmup_jit", "row_axis"])
 def test_one_rank_mesh(jit_proofs, one_rank_mesh, entry):
     """prove_jit(mesh=) on one rank gives the single-device bytes;
-    warmup_jit(mesh=) counts (dry) and calls the stages of that prove, all
-    keyed by the mesh, so no single-device graph is replayed; a row axis
-    the mesh lacks raises."""
+    warmup_jit(mesh=) calls the stages of that prove, in its order, and
+    counts them, all keyed by the mesh, so no single-device graph is
+    replayed; a row axis the mesh lacks raises."""
     _m, _cfg, blob, single_keys = jit_proofs["mini (fixture)"]
-    mesh_blob, keys, plan, counts, errors = one_rank_mesh
+    mesh_blob, keys, (count, warm_keys), errors = one_rank_mesh
     if entry == "prove_jit":
         assert mesh_blob == blob
     elif entry == "warmup_jit":
-        assert plan == keys and counts == (len(keys), len(keys))
+        assert warm_keys == keys and count == len(keys)
         assert all(k[-1] == ("mesh", 1, "sp") for k in keys)
         assert len(keys) > len(single_keys)  # the tree tops and gathers
     else:

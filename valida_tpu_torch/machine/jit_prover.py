@@ -84,13 +84,15 @@ ends with ("mesh", D, row_axis), and it reads the live group from _MESH.
 Not ported from the JAX package: its persistent export cache and source
 fingerprint (`_stage_cache_dir`, `_source_fingerprint`) are JAX-only (a
 CUDA graph does not outlive its process); `_par_map`'s threads (capture is
-not thread-safe: stages run in order); the host-challenger FRI ladder (the
+not thread-safe: stages run in order) and the list of stage keys made
+from the shapes alone, from which they compiled ahead of time (a graph is
+captured by running its stage); the host-challenger FRI ladder (the
 device one is the default there); the jitted grind attempt and
-`_grind_entry_k`, its key; the environment variables that set the row
-tiles.  The row tiles are the module constants below, 0 on every path: on
-the card a tile multiplies a stage's kernel launches, and the one-shot
-stages fit the memory the eager prover already needs.  A mesh prove does
-not tile the permutation traces or a sharded matrix's openings.
+`_grind_entry_k`, its key; the row tiles of the permutation, openings and
+reduced-opening stages and their environment variables.  Every stage here
+runs its whole domain at once: on the card a tile multiplies a stage's
+kernel launches, and the one-shot stages fit the memory the eager prover
+already needs.
 """
 
 from __future__ import annotations
@@ -104,8 +106,8 @@ import torch.distributed as dist
 
 from .. import _build
 from ..air.check import check_constraints, check_cumulative_sums
-from ..air.lookup import (generate_permutation_trace, padded_prep,
-                          perm_cols_and_terms, phi_column)
+from ..air.lookup import (generate_permutation_trace, perm_cols_and_terms,
+                          phi_column)
 from ..air.quotient import (decompose_and_flatten, get_log_quotient_degree,
                             quotient_rows, release_selector_tables)
 from ..commit import fri as frim
@@ -125,10 +127,8 @@ from ..parallel.dist_ntt import (COLLECTIVES, axis_info, count_collective,
 from ..poly import ntt as nttm
 from ..utils import span, stage
 
-# row tiles of the permutation, openings and reduced-opening stages (a
-# power of two; 0: the whole domain at once), and the largest
-# Merkle tree built in one stage (bigger ones run a stage per level)
-PERM_CHUNK = OPEN_CHUNK = REDUCED_CHUNK = 0
+# the largest Merkle tree built in one stage (bigger ones run a stage per
+# level)
 TREE_FUSE_MAX = 1 << 13
 
 # host->device uploads of the current prove (reset at each prove_jit): the
@@ -532,40 +532,6 @@ def _by_level(shapes) -> dict:
     return by_level
 
 
-def _tree_keys(shapes, hasher_name, mk=None) -> list:
-    """The keys of the stages `_build_levels_jit` (`_build_levels_mesh`
-    with mk, shapes global) calls on matrices of these shapes, in call
-    order."""
-    if mk is not None:
-        d = mk[1]
-        local = [(h // d, w) for h, w in shapes if h % d == 0]
-        if local:
-            rep = tuple((h, w) for h, w in shapes if h % d)
-            return _forest_keys(local, hasher_name, mk) + [
-                _tree_top_stage(d, rep, hasher_name, mk).key]
-    return _forest_keys(shapes, hasher_name, mk)
-
-
-def _forest_keys(shapes, hasher_name, mk) -> list:
-    by_level = _by_level(shapes)
-    log_max = max(by_level)
-    if (1 << log_max) <= TREE_FUSE_MAX:
-        return [_tree_stage(tuple(shapes), hasher_name, mk).key]
-
-    def leaf(k):
-        return _leaf_hash_jit(tuple(shapes[i] for i in by_level[k]),
-                              hasher_name, mk).key
-
-    keys = [leaf(log_max)]
-    for k in range(log_max - 1, -1, -1):
-        keys.append(_pair_hash_jit(1 << (k + 1), hasher_name, mk).key)
-        if k in by_level:
-            keys.append(leaf(k))
-            keys.append(_leaf_hash_jit(((1 << k, 8), (1 << k, 8)),
-                                       hasher_name, mk).key)
-    return keys
-
-
 def _build_levels_jit(mats, hasher_name, mk=None):
     """(root [8] tensor, {k: digests}): one fused stage for a small tree,
     a stage per level for a big one."""
@@ -687,10 +653,9 @@ def _points_for(zeta_m, kind):
 
 
 @functools.lru_cache(maxsize=None)
-def _openings_stage(shapes, kind, chunk, mk=None):
+def _openings_stage(shapes, kind, mk=None):
     """Open all coefficient matrices of one (height, point kind) group at
-    the kind's points: a [sum of widths, 5] Montgomery tensor per point.
-    chunk > 0 sums row tiles (exact: partial modular sums)."""
+    the kind's points: a [sum of widths, 5] Montgomery tensor per point."""
     h = shapes[0][0]
     if _sharded(h, mk):
         return _mesh_openings_stage(shapes, kind, mk)
@@ -700,16 +665,10 @@ def _openings_stage(shapes, kind, chunk, mk=None):
         out = []
         for z in _points_for(zeta_m, kind):
             zp = _ext_powers_dyn(z, h)
-            if chunk and h > chunk:
-                parts = [nttm.eval_at_ext_point(coeffs[r:r + chunk],
-                                                zp[r:r + chunk])
-                         for r in range(0, h, chunk)]
-                out.append(nttm._mod_sum(torch.stack(parts), axis=0))
-            else:
-                out.append(nttm.eval_at_ext_point(coeffs, zp))
+            out.append(nttm.eval_at_ext_point(coeffs, zp))
         return tuple(out)
 
-    return Stage(_keyed(("open", shapes, kind, chunk), mk), fn)
+    return Stage(_keyed(("open", shapes, kind), mk), fn)
 
 
 @functools.lru_cache(maxsize=None)
@@ -739,15 +698,14 @@ def _mesh_openings_stage(shapes, kind, mk):
 
 
 @functools.lru_cache(maxsize=None)
-def _reduced_stage(shapes, kind, log_lde, col_offs, shift, chunk, mk=None):
+def _reduced_stage(shapes, kind, log_lde, col_offs, shift, mk=None):
     """Reduced-opening contribution of one (height, point kind) group:
     sum over its points z of (sum_c alpha^off(c) (p_c(x) - p_c(z))) /
     (x - z) on the bit-reversed LDE domain, [2^log_lde, 5] Montgomery.
     col_offs[c] is column c's alpha-power index in the global matrix
     order.  The same words as `open_multi_batches`' per-matrix sums
-    (field sums are exact).  chunk > 0 runs row tiles.  In a mesh prove
-    the LDEs are this rank's blocks, against its rows of the points: every
-    row is its own."""
+    (field sums are exact).  In a mesh prove the LDEs are this rank's
+    blocks, against its rows of the points: every row is its own."""
     widths = [w for _h, w in shapes]
     n_pows = max(col_offs) + 1
 
@@ -764,28 +722,21 @@ def _reduced_stage(shapes, kind, log_lde, col_offs, shift, chunk, mk=None):
         x0 = _row_start(1 << log_lde, mk)
         xs = table(_coset_points_bitrev, log_lde, shift,
                    device=dev)[x0:x0 + q]
+        combined = None
+        for lde, ap in zip(ldes_rev, member_pows):
+            c = _alpha_combine(lde, ap)
+            combined = c if combined is None else bb.add(combined, c)
+        denoms = torch.stack([bb.sub(extf.ext_from_base(xs), z[None, :])
+                              for z in points])
+        inv_denoms = extf.ext_inv(denoms)
+        acc = None
+        for y, inv in zip(comb_ys, inv_denoms):
+            quot = extf.ext_mul(bb.sub(combined, y[None, :]), inv)
+            acc = quot if acc is None else bb.add(acc, quot)
+        return acc
 
-        def rows_fn(r0, r1):
-            combined = None
-            for lde, ap in zip(ldes_rev, member_pows):
-                c = _alpha_combine(lde[r0:r1], ap)
-                combined = c if combined is None else bb.add(combined, c)
-            denoms = torch.stack([bb.sub(extf.ext_from_base(xs[r0:r1]),
-                                         z[None, :]) for z in points])
-            inv_denoms = extf.ext_inv(denoms)
-            acc = None
-            for y, inv in zip(comb_ys, inv_denoms):
-                quot = extf.ext_mul(bb.sub(combined, y[None, :]), inv)
-                acc = quot if acc is None else bb.add(acc, quot)
-            return acc
-
-        if chunk and q > chunk:
-            return torch.cat([rows_fn(r, r + chunk)
-                              for r in range(0, q, chunk)], dim=0)
-        return rows_fn(0, q)
-
-    return Stage(_keyed(("red", shapes, kind, log_lde, col_offs, shift,
-                         chunk), mk), fn)
+    return Stage(_keyed(("red", shapes, kind, log_lde, col_offs, shift),
+                        mk), fn)
 
 
 @functools.lru_cache(maxsize=None)
@@ -862,54 +813,6 @@ def _ladder_challenge_stage(k0, param_set, mk=None):
     return Stage(_keyed(("frichal", k0, param_set), mk), fn)
 
 
-class _BufSim:
-    """Input/output buffer lengths of a DuplexChallenger as a function of
-    the observe/sample counts alone (values never change them)."""
-
-    def __init__(self):
-        self.k = 0
-        self.out = 0
-
-    def observe(self, n=1):
-        for _ in range(n):
-            self.out = 0
-            self.k += 1
-            if self.k == poseidon.WIDTH:
-                self.k = 0
-                self.out = poseidon.WIDTH
-
-    def sample(self, n=1):
-        for _ in range(n):
-            if self.k or not self.out:
-                self.k = 0
-                self.out = poseidon.WIDTH
-            self.out -= 1
-
-
-def _pre_ladder_sim(all_mats, direct_set) -> _BufSim:
-    """The challenger's buffers at the FRI ladder's entry, from the
-    pre-ladder transcript's counts (prove_jit's order)."""
-    sim = _BufSim()
-    sim.observe(8)  # preprocessed root (zeros if none)
-    sim.observe(8)  # main root
-    sim.sample(15)  # 3 permutation challenges
-    sim.observe(8)  # permutation root
-    sim.sample(5)  # alpha
-    sim.observe(8)  # quotient root
-    sim.sample(5)  # zeta
-    for (_h, w), kind in all_mats:
-        sim.observe((2 if kind[0] == "pair" else 1) * w * 5)  # opened values
-    for mi in sorted(direct_set):
-        (h, w), _k = all_mats[mi]
-        sim.observe(h * w)  # direct coefficients
-    sim.sample(5)  # alpha_fri
-    return sim
-
-
-def _ladder_entry_k0(all_mats, direct_set) -> int:
-    return _pre_ladder_sim(all_mats, direct_set).k
-
-
 @functools.lru_cache(maxsize=None)
 def _stack_canon_stage(n, mk=None):
     """Stack n [5] Montgomery cumulative sums, canonical (one fetch)."""
@@ -939,18 +842,13 @@ def _perm_stage(machine, chip, log_degree, width, prep_shape=None, mk=None):
     """Main trace, challenges [3, 5] canonical (and the preprocessed trace,
     an input: a program's ROM is content, not shape) -> (the flat
     canonical permutation trace [n, (K+1)*5], the cumulative sum [5]
-    Montgomery).  With PERM_CHUNK > 0, row tiles with phi's prefix sum
-    carried from tile to tile (the same words).  In a mesh prove that
-    shards the n rows: this rank's blocks in (the preprocessed trace
-    zero-padded to n rows) and out, phi's offset the sum of the lower
-    ranks' totals (one all_gather), the cumulative sum on every rank."""
+    Montgomery).  In a mesh prove that shards the n rows: this rank's
+    blocks in (the preprocessed trace zero-padded to n rows) and out, phi's
+    offset the sum of the lower ranks' totals (one all_gather), the
+    cumulative sum on every rank."""
     n = 1 << log_degree
-    n_inter = len(chip.all_interactions(machine))
-    chunk = PERM_CHUNK
-    if not (chunk and n > chunk and n_inter > 0) or mk is not None:
-        chunk = 0
     key = _keyed(("perm", type(machine).__name__, chip.name, log_degree,
-                  width, prep_shape, chunk), mk)
+                  width, prep_shape), mk)
     fn = _PERM_STAGE_CACHE.get(key)
     if fn is not None:
         return fn
@@ -960,21 +858,6 @@ def _perm_stage(machine, chip, log_degree, width, prep_shape=None, mk=None):
                                        prep=prep)
         return (bb.from_monty(t).reshape(n, t.shape[1] * 5),
                 t[-1, -1].clone())
-
-    def perm_chunked(main_trace, ch_arr, prep):
-        prep = padded_prep(chip, n, main_trace.device, prep)
-        flats, carry = [], None
-        for r in range(0, n, chunk):
-            prep_m = (bb.to_monty(prep[r:r + chunk]) if prep is not None
-                      else None)
-            cols, terms = perm_cols_and_terms(
-                machine, chip, bb.to_monty(main_trace[r:r + chunk]), prep_m,
-                ch_arr)
-            phi = phi_column(terms, carry)
-            carry = phi[-1]
-            t = torch.stack(cols + [phi], dim=1)
-            flats.append(bb.from_monty(t).reshape(chunk, -1))
-        return torch.cat(flats, dim=0), carry.clone()
 
     def perm_mesh(main_trace, ch_arr, prep):
         rows = int(main_trace.shape[0])
@@ -990,8 +873,7 @@ def _perm_stage(machine, chip, log_degree, width, prep_shape=None, mk=None):
         return (bb.from_monty(t).reshape(rows, -1),
                 nttm._mod_sum(totals, axis=0))
 
-    impl = (perm_mesh if _sharded(n, mk) else
-            perm_chunked if chunk else perm_full)
+    impl = perm_mesh if _sharded(n, mk) else perm_full
     if prep_shape is None:
         def stage_fn(main_trace, ch_arr):
             return impl(main_trace, ch_arr, None)
@@ -1107,7 +989,7 @@ def _fetch_all(arrs) -> list:
 
 
 # ---------------------------------------------------------------------------
-# the shapes of a prove, and the keys of its stages
+# the shapes of a prove
 # ---------------------------------------------------------------------------
 
 
@@ -1144,125 +1026,6 @@ def _padded_host(p: np.ndarray, n: int) -> np.ndarray:
     return p[:n]
 
 
-def _plan(machine, config, mk=None) -> list:
-    """The stage keys a prove of this machine under this config (on a mesh
-    with key mk) calls, in call order, from the shapes alone."""
-    chips = machine.chips()
-    pcs = config.pcs
-    fri_config = pcs.config
-    shift, log_blowup = pcs.coset_shift(), pcs.log_blowup
-    hasher = fri_config.hasher
-    keys = []
-    qds = [get_log_quotient_degree(machine, c) for c in chips]
-    prep_shapes = {ci: tuple(int(x) for x in np.asarray(p).shape)
-                   for ci, c in enumerate(chips)
-                   if (p := c.preprocessed_trace()) is not None}
-    main_shapes = []
-    for c in chips:
-        dti = c.device_trace_inputs(machine)
-        if dti is None:
-            main_shapes.append(tuple(np.asarray(c.generate_trace(machine))
-                                     .shape))
-            continue
-        inputs, meta = dti
-        keys.append(_trace_stage(machine, c, tuple(tuple(x.shape)
-                                                   for x in inputs),
-                                 meta, mk).key)
-        main_shapes.append((meta[1], c.width()))
-    log_degrees = [_log2(h) for h, _w in main_shapes]
-    perm_shapes = [(1 << ld, (len(c.all_interactions(machine)) + 1) * 5)
-                   for c, ld in zip(chips, log_degrees)]
-    quot_shapes = [(1 << ld, (1 << qd) * 5)
-                   for ld, qd in zip(log_degrees, qds)]
-
-    def lde_shapes(shapes):
-        return [(h << log_blowup, w) for h, w in shapes]
-
-    def commit(shapes, dshifts=None):
-        for shape, ds in zip(shapes, dshifts or [1] * len(shapes)):
-            keys.append((_lde_stage(shape, ds, log_blowup, shift)
-                         if mk is None else
-                         _mesh_lde_stage(shape, ds, log_blowup, shift,
-                                         mk)).key)
-        keys.extend(_tree_keys(lde_shapes(shapes), hasher, mk))
-
-    prep_list = [prep_shapes[ci] for ci in sorted(prep_shapes)]
-    if prep_list:
-        commit(prep_list)
-    commit(main_shapes)
-    for ci, (c, ld) in enumerate(zip(chips, log_degrees)):
-        prep_shape = prep_shapes.get(ci)
-        if mk is not None and prep_shape is not None:
-            prep_shape = (1 << ld, prep_shape[1])
-        keys.append(_perm_stage(machine, c, ld, main_shapes[ci][1],
-                                prep_shape, mk).key)
-    commit(perm_shapes)
-    keys.append(_stack_canon_stage(len(chips), mk).key)
-    for ci, (c, ld) in enumerate(zip(chips, log_degrees)):
-        shapes_q = ((main_shapes[ci][0] << log_blowup, main_shapes[ci][1]),
-                    (perm_shapes[ci][0] << log_blowup, perm_shapes[ci][1]),
-                    ((prep_shapes[ci][0] << log_blowup, prep_shapes[ci][1])
-                     if ci in prep_shapes else None))
-        keys.append(_quotient_stage(machine, c, ld, qds[ci], shapes_q, shift,
-                                    log_blowup, mk).key)
-    commit(quot_shapes, [bb.h_exp(shift, 1 << qd) for qd in qds])
-
-    all_mats = ([(prep_shapes[ci], ("pair", log_degrees[ci]))
-                 for ci in sorted(prep_shapes)]
-                + [(s, ("pair", ld)) for s, ld in zip(main_shapes,
-                                                      log_degrees)]
-                + [(s, ("pair", ld)) for s, ld in zip(perm_shapes,
-                                                      log_degrees)]
-                + [(s, ("pow", qd)) for s, qd in zip(quot_shapes, qds)])
-    direct, groups, offs = _opening_layout(all_mats, log_blowup, fri_config)
-    keys.extend(_gather_stage(all_mats[mi][0], mk).key
-                for mi in sorted(direct) if _sharded(all_mats[mi][0][0], mk))
-    for (log_h, kind), members in groups.items():
-        keys.append(_openings_stage(tuple(all_mats[mi][0] for mi in members),
-                                    kind, OPEN_CHUNK, mk).key)
-    seen_heights = set()
-    for (log_h, kind), members in groups.items():
-        log_lde = log_h + log_blowup
-        keys.append(_reduced_stage(
-            tuple(all_mats[mi][0] for mi in members), kind, log_lde,
-            _col_offs(all_mats, offs, members), shift, REDUCED_CHUNK,
-            mk).key)
-        if log_lde in seen_heights:
-            keys.append(_add_stage((1 << log_lde, 5), mk).key)
-        seen_heights.add(log_lde)
-
-    log_max = max(seen_heights)
-    log_stop = frim.fri_log_stop(fri_config, log_max, min(seen_heights))
-    k0 = _ladder_entry_k0(all_mats, direct)
-    for layer, log_m in enumerate(range(log_max, log_stop, -1)):
-        if _sharded(1 << log_m, mk) and not _sharded(1 << (log_m - 1), mk):
-            keys.append(_gather_stage((1 << log_m, 5), mk).key)
-        keys.append(_fri_pair_mat(log_m, mk).key)
-        keys.extend(_tree_keys([(1 << (log_m - 1), 10)], hasher, mk))
-        keys.append(_ladder_challenge_stage(k0 if layer == 0 else 0,
-                                            poseidon.PARAM_SET, mk).key)
-        keys.append(_fri_fold(log_m, frim.layer_shift(shift, layer),
-                              (log_m - 1) in seen_heights, mk).key)
-    if _sharded(1 << log_stop, mk):
-        keys.append(_gather_stage((1 << log_stop, 5), mk).key)
-
-    nq = fri_config.num_queries
-
-    def open_keys(committed):
-        lm = max(_log2(h) for h, _w in committed)
-        if lm:
-            keys.append(_open_batch_stage(
-                tuple(committed), tuple((1 << k, 8) for k in range(lm, 0, -1)),
-                lm, nq, mk).key)
-
-    for log_m in range(log_max, log_stop, -1):
-        open_keys([(1 << (log_m - 1), 10)])
-    for group in ([prep_list] if prep_list else []) + [
-            main_shapes, perm_shapes, quot_shapes]:
-        open_keys(lde_shapes(group))
-    return keys
-
-
 def _mesh_of(mesh, row_axis: str, device):
     """The _Mesh of a prove on `mesh` (None without one)."""
     if mesh is None:
@@ -1273,17 +1036,13 @@ def _mesh_of(mesh, row_axis: str, device):
     return _Mesh(mesh, row_axis)
 
 
-def warmup_jit(machine, config, dry: bool = False, mesh=None,
-               row_axis: str = "sp") -> int:
+def warmup_jit(machine, config, mesh=None, row_axis: str = "sp") -> int:
     """Capture every stage a prove of this machine's shapes calls, by one
-    prove whose proof is dropped (the graphs keep their call sites in
-    prove order, so a later prove only replays); dry=True only enumerates
-    the stage keys, from the shapes.  With a mesh, the stages of
-    `prove_jit(mesh=mesh, row_axis=row_axis)` (every rank calls it).
-    Returns the number of stage calls of one prove."""
-    if dry:
-        m = _mesh_of(mesh, row_axis, config.pcs.device)
-        return len(_plan(machine, config, m.key if m else None))
+    `prove_jit` whose proof is dropped (the graphs keep their call sites in
+    prove order, so a later prove of the same shapes only replays).  With a
+    mesh, the stages of `prove_jit(mesh=mesh, row_axis=row_axis)` (every
+    rank calls it).  Returns the number of stage calls of one prove,
+    `len(STAGE_LOG)`."""
     prove_jit(machine, config, mesh, row_axis)
     return len(STAGE_LOG)
 
@@ -1301,7 +1060,11 @@ def prove_jit(machine, config, mesh=None, row_axis: str = "sp"
     the process group calls this; each gets the same proof).  With
     config.debug_checks on, a mesh prove gathers every main and
     permutation trace outside the stages for the checks: on the card those
-    are eager collectives, up to two a chip."""
+    are eager collectives, up to two a chip.  The keys of the stages it
+    called, in call order, are left in STAGE_LOG: a prove of the same
+    shapes calls the same keys in the same order, which the graphs' tree
+    of call sites relies on.  A row axis the mesh lacks raises
+    ValueError."""
     _MESH[0] = _mesh_of(mesh, row_axis, config.pcs.device)
     try:
         return _prove(machine, config,
@@ -1521,7 +1284,7 @@ def _prove(machine, config, mk) -> MachineProof:
     with stage("open at zeta"):
         group_vals = [
             _openings_stage(tuple(all_mats[mi][0] for mi in members), kind,
-                            OPEN_CHUNK, mk)(
+                            mk)(
                 tuple(all_coeffs[mi] for mi in members), zeta_m)
             for (_lh, kind), members in group_items]
         fetched = iter(_fetch_all([v for vals in group_vals for v in vals]))
@@ -1551,8 +1314,7 @@ def _prove(machine, config, mk) -> MachineProof:
             log_lde = log_h + log_blowup
             contrib = _reduced_stage(
                 tuple(all_mats[mi][0] for mi in members), kind, log_lde,
-                _col_offs(all_mats, offs, members), shift, REDUCED_CHUNK,
-                mk)(tuple(all_ldes[mi] for mi in members), group_vals[gi],
+                _col_offs(all_mats, offs, members), shift, mk)(tuple(all_ldes[mi] for mi in members), group_vals[gi],
                     zeta_m, alpha_fri_m)
             if log_lde in reduced:
                 contrib = _add_stage((1 << log_lde, 5), mk)(reduced[log_lde],
