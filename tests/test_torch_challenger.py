@@ -226,7 +226,8 @@ def test_transcript_matches_plain_permutation(param_set, monkeypatch):
     assert got_c.output_buffer == want_c.output_buffer
 
 
-@pytest.mark.parametrize("missing", ["SRC", "POSEIDON_SRC", "MEMSORT_SRC"])
+@pytest.mark.parametrize("missing", ["SRC", "POSEIDON_SRC", "MEMSORT_SRC",
+                                     "MEMROUTE_SRC"])
 def test_permute_host_has_no_fallback(monkeypatch, tmp_path, missing):
     """With a source of the native library missing (so none can be built
     or loaded), permute_host raises NativeRunError and never runs the numpy

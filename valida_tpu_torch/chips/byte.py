@@ -96,6 +96,29 @@ def register_range_checks(machine, src_al, dst_al, sel):
     machine.range().range_check_value(2 * (sel & 0x7F))
 
 
+def byte_slots(mclk, mwrite, maddr, mvalue, is_byte):
+    """((addr, value) of slot 0, 1, 2, 3), int64: the first three reads
+    and the first write at each byte op's clk, in op order, from the
+    memory op log in execution order and the CPU ops' byte-op flags."""
+    # only the ops at byte-op clks (all of each such clk), by their rank
+    # among their clk's reads or writes: each rank holds one op of every
+    # byte op, in clk order (the third read, one of every STOREU8)
+    at = np.flatnonzero(is_byte[mclk])
+    mclk, maddr, mvalue = mclk[at], maddr[at], mvalue[at]
+    mwrite = mwrite[at].astype(bool)
+    read_rank = ranks_in_clk(mclk, ~mwrite)
+    write_rank = ranks_in_clk(mclk, mwrite)
+
+    def ops_of(sel):
+        idx = np.flatnonzero(sel)
+        return maddr[idx].astype(np.int64), mvalue[idx].astype(np.int64)
+
+    return (ops_of(~mwrite & (read_rank == 0)),
+            ops_of(~mwrite & (read_rank == 1)),
+            ops_of(~mwrite & (read_rank == 2)),
+            ops_of(mwrite & (write_rank == 0)))
+
+
 class ByteChip(Chip):
     name = "byte"
 
@@ -116,29 +139,13 @@ class ByteChip(Chip):
         write of the merged word."""
         kinds, _hi, _imm, _opc, operands, _pc, pre_fp = \
             machine.cpu().op_arrays()
-        mclk, mwrite, maddr, mvalue = machine.mem().op_arrays()
         is_byte = np.isin(kinds, (1, 2, 4))
         clk = np.flatnonzero(is_byte)
         n = len(clk)
         n2 = next_pow2(n)
         is_st = kinds[clk] == 4
         kindc = np.where(is_st, 2, np.where(kinds[clk] == 2, 1, 0))
-        # the memory ops at byte-op clks by their rank among their clk's
-        # reads or writes: each rank holds one op of every byte op, in clk
-        # order (the third read, one of every STOREU8)
-        mwrite = mwrite.astype(bool)
-        at_byte = is_byte[mclk]
-        read_rank = ranks_in_clk(mclk, ~mwrite)
-        write_rank = ranks_in_clk(mclk, mwrite)
-
-        def ops_of(sel):
-            idx = np.flatnonzero(at_byte & sel)
-            return maddr[idx].astype(np.int64), mvalue[idx].astype(np.int64)
-
-        r0 = ops_of(~mwrite & (read_rank == 0))
-        r1 = ops_of(~mwrite & (read_rank == 1))
-        r2 = ops_of(~mwrite & (read_rank == 2))
-        w0 = ops_of(mwrite & (write_rank == 0))
+        r0, r1, r2, w0 = byte_slots(*machine.mem().op_arrays(), is_byte)
         fp = pre_fp[clk].astype(np.int64)
         opnds = operands[clk].astype(np.int64)
         srcp = np.where(is_st, fp + opnds[:, 2], r0[1]) & 0xFFFFFFFF

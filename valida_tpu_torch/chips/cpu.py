@@ -8,8 +8,9 @@ and the program-bus send is enabled (the reference comments it out at
 cpu/src/lib.rs:138-158 because preprocessed openings were missing).
 
 Counterpart of valida_tpu/chips/cpu.py.  The memory-channel routing and
-the op arrays are made on the host with numpy, as in the JAX package; the
-trace is built from them by torch operations on the prover's device.
+the op arrays are made on the host, the routing in one C++ pass
+(native/memroute.cpp); the trace is built from them by torch operations
+on the prover's device.
 """
 
 from __future__ import annotations
@@ -160,7 +161,20 @@ class CpuChip(Chip):
         left_imm = (kinds == 14) & (has_imm != 0)
 
         # -- memory channel routing (cpu/src/lib.rs:244-283) ---------------
-        mclk, mwrite, maddr, mvalue = machine.mem().op_arrays()
+        from ..native import mem_channels
+
+        channels = mem_channels(*machine.mem().op_arrays(), left_imm)
+        inputs = (kinds, has_imm, imm, opcode, operands_u, pre_pc, pre_fp)
+        for ch in channels:
+            inputs += ch
+        return inputs, (n, n2)
+
+    @staticmethod
+    def _channels_plain(mclk, mwrite, maddr, mvalue, left_imm):
+        """((clk, addr, value) of channel 0, 1, 2): the memory ops routed
+        to the three channels, in op order.  The plain version of
+        native/memroute.cpp's `mem_cpu_channels`, which the tests hold it
+        to (as the JAX package routes)."""
         mwrite = mwrite.astype(bool)
         # rank of each read within its clk group (groups contiguous);
         # reads: rank 0 -> channel 0 (1 for left-imm ops), rank 1 -> 1;
@@ -172,11 +186,11 @@ class CpuChip(Chip):
             mwrite, 2,
             np.where((rank == 0) & ~is_left, 0, np.where(rank <= 1, 1, -1))
         )
-        inputs = (kinds, has_imm, imm, opcode, operands_u, pre_pc, pre_fp)
+        channels = ()
         for ch_id in range(3):
             sel = ch == ch_id
-            inputs += (mclk[sel], maddr[sel], mvalue[sel])
-        return inputs, (n, n2)
+            channels += ((mclk[sel], maddr[sel], mvalue[sel]),)
+        return channels
 
     def build_trace(self, inputs, meta):
         (kinds, has_imm, imm, opcode, operands_u, pre_pc, pre_fp,

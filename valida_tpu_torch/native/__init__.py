@@ -1,7 +1,8 @@
 """ctypes bindings of the native host library: the interpreter core
 (interpreter.cpp), the challenger's Poseidon permutation (poseidon.cpp,
-called by crypto/poseidon.py's `permute_host`) and the memory chip's sort
-and range-limb counts (memsort.cpp, `mem_sort`).
+called by crypto/poseidon.py's `permute_host`), the memory chip's sort
+and range-limb counts (memsort.cpp, `mem_sort`) and the memory log's
+routing to the cpu's three channels (memroute.cpp, `mem_channels`).
 
 Counterpart of valida_tpu/native/__init__.py.  `run_native(machine)`
 executes the machine's loaded program with the C++ VM and fills its chips'
@@ -56,6 +57,8 @@ _SIGNATURES = {
     "poseidon16_permute": (None, [_P, _P, _P]),
     "mem_sort_rows": (ctypes.c_int, [_P, _P, _SIZE, _P, _P, _P, _P, _SIZE,
                                      _P, _SIZE, _P]),
+    "mem_cpu_channels": (ctypes.c_int, [_P, _P, _P, _P, _SIZE, _P, _SIZE,
+                                        _P, _P]),
 }
 
 # kind code -> the CPU log's kind name
@@ -159,6 +162,36 @@ def mem_sort(static: dict, clk: np.ndarray, is_write: np.ndarray,
                          _ptr(counts)) != 0:
         raise AssertionError("sort delta outside the 2^30 range argument")
     return rows, counts
+
+
+def mem_channels(clk: np.ndarray, is_write: np.ndarray, addr: np.ndarray,
+                 value: np.ndarray, left_imm: np.ndarray) -> tuple:
+    """The CPU chip's three memory channels from the memory op log in
+    execution order (clk nondecreasing) and the CPU ops' left-immediate
+    flags (bool, one a clk): ((clk, addr, value) of channel 0, 1, 2), u32
+    arrays in op order.  A write goes to channel 2, a clk's first read to
+    channel 0 (1 at a left-immediate op), its second read to channel 1.
+    Equals `CpuChip._channels_plain` array for array; raises ValueError
+    if a clk decreases or has no CPU op."""
+    lib = library()
+    arrays = (clk, is_write, addr, value, left_imm)
+    for a, dt in zip(arrays, (np.uint32, np.uint8, np.uint32, np.uint32,
+                              np.bool_), strict=True):
+        if a.dtype != dt or a.ndim != 1 or not a.flags.c_contiguous:
+            raise ValueError(f"mem_channels: expected a contiguous 1-d "
+                             f"{np.dtype(dt)} array, got {a.dtype} of "
+                             f"shape {a.shape}")
+    if any(len(a) != len(clk) for a in arrays[1:4]):
+        raise ValueError("mem_channels: op arrays of different lengths")
+    m = len(clk)
+    out = np.empty((3, 3, m), dtype=np.uint32)
+    counts = np.zeros(3, dtype=np.uint64)
+    if lib.mem_cpu_channels(*map(_ptr, (clk, is_write, addr, value)), m,
+                            _ptr(left_imm), len(left_imm), _ptr(out),
+                            _ptr(counts)) != 0:
+        raise ValueError("mem_channels: a clk decreases or has no CPU op")
+    return tuple(tuple(out[ch, :, :k]) for ch, k in
+                 enumerate(counts.tolist()))
 
 
 def run_native(machine, max_steps: int = 1 << 32, build_lists: bool = True,

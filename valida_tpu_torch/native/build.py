@@ -1,6 +1,7 @@
 """Build the native host library with g++: the interpreter core
-(interpreter.cpp), the challenger's Poseidon permutation (poseidon.cpp) and
-the memory chip's sort and range-limb counts (memsort.cpp).
+(interpreter.cpp), the challenger's Poseidon permutation (poseidon.cpp),
+the memory chip's sort and range-limb counts (memsort.cpp) and the routing
+of the memory log to the cpu's three channels (memroute.cpp).
 
     python -m valida_tpu_torch.native.build
 
@@ -22,14 +23,15 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "interpreter.cpp"
 POSEIDON_SRC = SRC.parent / "poseidon.cpp"
 MEMSORT_SRC = SRC.parent / "memsort.cpp"
+MEMROUTE_SRC = SRC.parent / "memroute.cpp"
 BUILD_DIR = SRC.parents[2] / "build" / "valida_tpu_torch"
 FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
-def sources() -> tuple[Path, Path, Path]:
+def sources() -> tuple[Path, Path, Path, Path]:
     """The library's sources (the module's paths as they are at the call,
     so that a path replaced by a test is the one built and hashed)."""
-    return SRC, POSEIDON_SRC, MEMSORT_SRC
+    return SRC, POSEIDON_SRC, MEMSORT_SRC, MEMROUTE_SRC
 
 
 def target() -> Path:
