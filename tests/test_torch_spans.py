@@ -6,10 +6,14 @@ change a proof's bytes, the stage collection, or cost a
 `record_function` without a profiler; the memory chip's sort runs inside
 "execute: range checks".  The spans of uploads, fetches and
 graph captures exist only on the card: proverbench/tests/
-test_proverbench_spans.py holds them there.  Last, the benchmark's
-readers of the u32 ALU chips' spans and ranges
-(proverbench/metrics/alu_*.py) on synthetic events.  About 25 s, most of
-it the profiled prove and reading its trace back."""
+test_proverbench_spans.py holds them there.  Each Merkle tree the prove
+builds opens one range "merkle: <tree>" inside its stage.  Last, the
+benchmark's readers of the u32 ALU chips' spans and ranges
+(proverbench/metrics/alu_*.py), of the trees' ranges
+(merkle_busy_ms.py, merkle_roofline.py, by proverbench/trees.py) and of
+the grind's counter (grind_candidates_per_prove.py) on synthetic events,
+and the counter in a grind.  About 25 s, most of it the profiled prove
+and reading its trace back."""
 
 import contextlib
 import hashlib
@@ -353,3 +357,148 @@ def test_alu_quotient_roofline_counts_only_the_alu_chips(bench):
         one = bench.roofline.quotient_bound(
             {"chips": {chip: size["chips"][chip]}})[0]
         assert 0 < one < alu
+
+
+# -- the Merkle trees' spans and the benchmark's readers of them ------------
+
+# the stage that encloses each tree's span
+TREE_STAGES = {"merkle: preprocessed": "commit to preprocessed traces",
+               "merkle: main": "commit to main traces",
+               "merkle: permutation": "commit to permutation traces",
+               "merkle: quotient chunks": "commit to quotient chunks",
+               "merkle: FRI layer": "FRI commit phase"}
+
+
+def test_one_merkle_span_a_tree_inside_its_stage(runs):
+    """A profiled prove opens one range "merkle: <tree>" for each tree it
+    builds (the four commits' and one a FRI layer), each inside its
+    stage's range; with no profiler it opens none."""
+    from valida_tpu_torch.tooling.serde import deserialize_proof
+
+    _m, _stages, blob, host, _calls = runs["profiled"]
+    layers = len(deserialize_proof(blob).opening_proof.fri
+                 .commit_phase_commits)
+    ranges = [(s, e, n) for s, e, n in host if n.startswith("merkle: ")]
+    got = {}
+    for _s, _e, n in ranges:
+        got[n] = got.get(n, 0) + 1
+    assert got == {n: (layers if n == "merkle: FRI layer" else 1)
+                   for n in TREE_STAGES} and layers > 3
+    for s, e, n in ranges:
+        (s0, e0), = [(a, b) for a, b, m in host if m == TREE_STAGES[n]]
+        assert s0 <= s and e <= e0
+    _stages, _blob, entered = runs["plain"]
+    assert not [n for n in entered if n.startswith("merkle: ")]
+
+
+def _merkle_window(bench, cell: str, with_spans: bool = True):
+    """A traced window of two proves of `cell`: in each, on the card, a
+    leaf kernel and a compression kernel inside "merkle: main", a kernel
+    inside "merkle: FRI layer" and an NTT outside both; without
+    `with_spans` (a program without them) only the kernels."""
+    us = 1e6
+    X = lambda cat, name, s, d: {"ph": "X", "cat": cat, "name": name,
+                                 "ts": s * us, "dur": d * us}
+    events = [X("user_annotation", bench.trace.WINDOW, 0.0, 20.0)]
+    for j0 in (0.0, 10.0):
+        events += [X("user_annotation", "job: prove", j0 + 1.0, 8.0),
+                   X("kernel", "ntt_dif_ragged", j0 + 1.5, 0.5),
+                   X("kernel", "poseidon2", j0 + 2.0, 0.25),
+                   X("kernel", "poseidon2", j0 + 2.25, 0.125),
+                   X("kernel", "poseidon2", j0 + 6.0, 0.125)]
+        if with_spans:
+            events += [
+                X("gpu_user_annotation", "merkle: main", j0 + 2.0, 0.375),
+                X("gpu_user_annotation", "merkle: FRI layer", j0 + 6.0,
+                  0.125)]
+    c = bench.spec.cell(bench.spec.benchmark(), cell)
+    return types.SimpleNamespace(cell=c, jobs=[None, None],
+                                 trace=bench.trace.Trace(events))
+
+
+@pytest.mark.parametrize("cell", ("fibonacci_poseidon2.seg21",
+                                  "fibonacci.seg20"))
+@pytest.mark.parametrize("name", ("merkle_busy_ms", "merkle_roofline"))
+def test_merkle_metric_reads_synthetic_ranges(bench, name, cell):
+    """The trees' busy time is the kernels inside the ranges "merkle:
+    <tree>" (0.5 s a prove, the NTT left out); the roofline is the
+    configuration's tree bound, by its profile's hasher, over it.
+    Without the ranges both return None."""
+    import trees
+
+    ctx = _merkle_window(bench, cell)
+    want = (500.0 if name == "merkle_busy_ms" else
+            100.0 * trees.bound(ctx.cell.size,
+                                ctx.cell.config["profile"])[0] / 0.5)
+    read = bench.spec.metric_reader(name)
+    assert read(ctx) == pytest.approx(want)
+    assert read(_merkle_window(bench, cell, with_spans=False)) is None
+
+
+def test_tree_bound_by_hasher(bench):
+    """The bound's two branches: Keccak-f as roofline.py counts the trees
+    (4,320 slots a permutation); Poseidon2 at chip_smoke.py's 3,150 slots
+    a permutation, the `poseidon2` kernel's 3.1594 ms at 2^20 rows of 128
+    words; both bounded by operations at the cell's shapes, Poseidon2's
+    the larger."""
+    import trees
+
+    r = bench.roofline
+    blocks, f_ops = trees.HASHERS["poseidon2"]
+    assert (f_ops, blocks(128), blocks(16), blocks(15)) == (3150, 16, 2, 2)
+    assert 1e3 * (1 << 20) * blocks(128) * f_ops / r.INT32_OPS_PER_S == \
+        pytest.approx(3.1594, abs=1e-4)
+    size = bench.spec.cell(bench.spec.benchmark(),
+                           "fibonacci_poseidon2.seg21").size
+    bounds = {}
+    for hasher in ("keccak", "poseidon2"):
+        profile = {"hasher": hasher, "log_blowup": 1}
+        least, by = trees.bound(size, profile)
+        perms = sum(trees.tree_permutations(t, hasher)
+                    for t in trees.prove_trees(size, 1))
+        assert by == "operations"
+        assert least == pytest.approx(
+            perms * trees.HASHERS[hasher][1] / r.INT32_OPS_PER_S)
+        bounds[hasher] = least
+    for mats in trees.prove_trees(size, 1):
+        assert (trees.tree_permutations(mats, "keccak")
+                == r.tree_permutations(mats))
+    assert bounds["poseidon2"] > bounds["keccak"]
+
+
+def test_grind_candidates_read_the_ports_counter(bench, monkeypatch):
+    """grind_candidates_per_prove is the port's grind counter, candidates
+    over grinds; None where the port has no such counter or no grind ran,
+    as in a program without it."""
+    from valida_tpu_torch.commit import fri
+
+    read = bench.spec.metric_reader("grind_candidates_per_prove")
+    monkeypatch.setattr(fri, "grind_stats",
+                        {"grinds": 4, "candidates": 3 * 16384 + 114688})
+    assert read(None) == pytest.approx((3 * 16384 + 114688) / 4)
+    monkeypatch.setattr(fri, "grind_stats", {"grinds": 0, "candidates": 0})
+    assert read(None) is None
+    monkeypatch.delattr(fri, "grind_stats")
+    assert read(None) is None
+
+
+def test_grind_counts_every_candidate_it_permutes(monkeypatch):
+    """grind_device adds one grind and every candidate of every batch it
+    permuted (the last batch whole) to fri.grind_stats."""
+    from valida_tpu_torch.commit import fri
+    from valida_tpu_torch.crypto.challenger import DuplexChallenger
+
+    monkeypatch.setattr(fri, "grind_stats", {"grinds": 0, "candidates": 0})
+    permuted = []
+    permute = poseidon.permute_device
+
+    def counted(state):
+        permuted.append(int(state.shape[0]))
+        return permute(state)
+
+    monkeypatch.setattr(poseidon, "permute_device", counted)
+    ch = DuplexChallenger()
+    ch.observe(12345)
+    fri.grind_device(ch, 7, device="cpu")
+    assert fri.grind_stats == {"grinds": 1, "candidates": sum(permuted)}
+    assert permuted[0] == 512

@@ -201,10 +201,15 @@ def extract_final_poly(current: torch.Tensor, config: FriConfig,
 # ---------------------------------------------------------------------------
 
 
+# the grinds of this process and the candidates they permuted (every
+# candidate of every batch tried), which the benchmark reads
+grind_stats = {"grinds": 0, "candidates": 0}
+
+
 def grind_device(challenger, bits: int, device="cuda") -> int:
     """The smallest witness w such that observing w and then sampling
     `bits` bits gives 0, searched in ascending batches of Poseidon
-    permutations on `device`.
+    permutations on `device` (counted in `grind_stats`).
 
     As DuplexChallenger.grind: observe(w) appends to the input buffer, and
     sample() duplexes and pops state[WIDTH - 1]."""
@@ -218,6 +223,7 @@ def grind_device(challenger, bits: int, device="cuda") -> int:
     mask = (1 << bits) - 1
 
     def attempt(start: int, batch: int) -> int:
+        grind_stats["candidates"] += batch
         # below p + 2^16 < 2^31: int32 words, as the field kernels take them
         cand = torch.arange(start, start + batch, dtype=torch.int32,
                             device=device)
@@ -231,6 +237,7 @@ def grind_device(challenger, bits: int, device="cuda") -> int:
         return int(cand[ok.nonzero()[0, 0]])  # the first hit
 
     # about 2^bits candidates are expected: start small, grow the batch
+    grind_stats["grinds"] += 1
     start = 0
     batch = max(64, min(1 << 14, 4 << bits))
     while start < bb.P:

@@ -86,9 +86,12 @@ def _log_height(m) -> int:
     return h.bit_length() - 1
 
 
-def merkle_levels(mats: list, hasher=KECCAK) -> tuple[torch.Tensor, dict]:
+def merkle_levels(mats: list, hasher=KECCAK,
+                  low: int = 0) -> tuple[torch.Tensor, dict]:
     """mats: int32 canonical [h_i, w_i], h_i powers of two ->
-    (root [8], {level k: digests [2^k, 8]})."""
+    (the first digest of the lowest level built, {level k: digests [2^k,
+    8]}) for k from the tallest matrix's log height down to `low` (the
+    root and every level where low is 0)."""
     hasher = get_hasher(hasher)
     by_level: dict = {}
     for m in mats:
@@ -96,14 +99,14 @@ def merkle_levels(mats: list, hasher=KECCAK) -> tuple[torch.Tensor, dict]:
     k = max(by_level)
     d = hash_rows(by_level[k], hasher)
     levels = {k: d}
-    while k > 0:
+    while k > low:
         k -= 1
         d = compress_pairs(d, hasher)
         if k in by_level:
             inj = hash_rows(by_level[k], hasher)
             d = hasher.hash_words(torch.cat([d, inj], dim=1))
         levels[k] = d
-    return levels[0][0], levels
+    return d[0], levels
 
 
 class MerkleTree:

@@ -7,7 +7,8 @@ machine/prover.py:
 
   traces      op arrays -> [n, w] main traces (chip.build_trace)
   commit      trace -> coefficients, bit-reversed LDE, canonical rows;
-              Merkle levels (one stage per tree, or per level when big)
+              Merkle levels (one stage per tree, or per level when big,
+              inside a span "merkle: <tree>"; the root's level apart)
   perm        main trace + challenges (+ preprocessed) -> flat permutation
               trace and cumulative sum
   quotient    LDEs + challenges + alpha + cumulative sum -> chunk matrix
@@ -492,11 +493,12 @@ def _pair_hash_jit(n, hasher_name, mk=None):
 
 @functools.lru_cache(maxsize=None)
 def _tree_stage(mat_shapes, hasher_name, mk=None):
-    """A whole Merkle forest (mixed heights, level injection) in one
-    stage: matrices in, every digest level out (log_max .. 0)."""
+    """A Merkle forest (mixed heights, level injection) but its root in
+    one stage: matrices in, the digest levels log_max .. 1 out (the leaf
+    level alone where log_max is 0)."""
 
     def fn(mats):
-        _root, levels = merkle_levels(list(mats), hasher_name)
+        _first, levels = merkle_levels(list(mats), hasher_name, low=1)
         return tuple(levels[k] for k in sorted(levels, reverse=True))
 
     return Stage(_keyed(("tree", mat_shapes, hasher_name), mk), fn)
@@ -532,41 +534,52 @@ def _by_level(shapes) -> dict:
     return by_level
 
 
-def _build_levels_jit(mats, hasher_name, mk=None):
+def _build_levels_jit(mats, hasher_name, label, mk=None):
     """(root [8] tensor, {k: digests}): one fused stage for a small tree,
-    a stage per level for a big one."""
+    a stage per level for a big one, then a stage for the root's level.
+    The span `label` ("merkle: main") holds every level but the root's,
+    which stays in the caller's range: a profiler draws a range on the
+    card's timeline from the first operation it holds to the last, so a
+    stage whose last work is a tree keeps its whole extent."""
     shapes = tuple(_shape(m) for m in mats)
     by_level = _by_level(shapes)
     log_max = max(by_level)
-    if (1 << log_max) <= TREE_FUSE_MAX:
-        outs = _tree_stage(shapes, hasher_name, mk)(tuple(mats))
-        levels = {log_max - i: a for i, a in enumerate(outs)}
-        return levels[0][0], levels
 
     def leaf(group):
         return _leaf_hash_jit(tuple(_shape(m) for m in group),
                               hasher_name, mk)(tuple(group))
 
-    d = leaf([mats[i] for i in by_level[log_max]])
-    levels = {log_max: d}
-    for k in range(log_max - 1, -1, -1):
+    def below(k, d):
+        """Level k from level k + 1."""
         d = _pair_hash_jit(1 << (k + 1), hasher_name, mk)(d)
         if k in by_level:
             d = leaf([d, leaf([mats[i] for i in by_level[k]])])
-        levels[k] = d
+        return d
+
+    with span(label):
+        if (1 << log_max) <= TREE_FUSE_MAX:
+            outs = _tree_stage(shapes, hasher_name, mk)(tuple(mats))
+            levels = {log_max - i: a for i, a in enumerate(outs)}
+        else:
+            levels = {log_max: leaf([mats[i] for i in by_level[log_max]])}
+            for k in range(log_max - 1, 0, -1):
+                levels[k] = below(k, levels[k + 1])
+    if log_max:
+        levels[0] = below(0, levels[1])
     return levels[0][0], levels
 
 
-def _build_levels_mesh(mats, shapes, hasher_name, mk):
+def _build_levels_mesh(mats, shapes, hasher_name, label, mk):
     """`_build_levels_jit` of a mesh prove (shapes global): the sharded
     matrices' blocks are a subtree on each rank, built locally down to its
-    root; `_tree_top_stage` makes the top.  Levels above log2(D) are this
-    rank's blocks, the rest whole."""
+    root; `_tree_top_stage` makes the top, outside the span `label`.
+    Levels above log2(D) are this rank's blocks, the rest whole."""
     d = mk[1]
     local = [i for i, (h, _w) in enumerate(shapes) if h % d == 0]
     if not local:
-        return _build_levels_jit(mats, hasher_name, mk)
-    _r, below = _build_levels_jit([mats[i] for i in local], hasher_name, mk)
+        return _build_levels_jit(mats, hasher_name, label, mk)
+    _r, below = _build_levels_jit([mats[i] for i in local], hasher_name,
+                                  label, mk)
     rep = [i for i in range(len(mats)) if i not in local]
     top = _tree_top_stage(d, tuple(shapes[i] for i in rep), hasher_name,
                           mk)(below[0], tuple(mats[i] for i in rep))
@@ -1131,22 +1144,25 @@ def _prove(machine, config, mk) -> MachineProof:
                                                          main_traces)]
     log_degrees = [_log2(h) for h in heights]
 
-    def tree_of(committed, shapes):
-        """The tree of the committed matrices (global shapes)."""
+    def tree_of(committed, shapes, name):
+        """The tree of the committed matrices (global shapes), built
+        inside the span "merkle: <name>" (all but its root's level)."""
+        label = f"merkle: {name}"
         if mk is None:
-            root, levels = _build_levels_jit(committed, hasher)
+            root, levels = _build_levels_jit(committed, hasher, label)
             return DeviceTree(committed, root, levels)
-        root, levels = _build_levels_mesh(committed, shapes, hasher, mk)
+        root, levels = _build_levels_mesh(committed, shapes, hasher, label,
+                                          mk)
         return DeviceTree(committed, root, levels, [h for h, _w in shapes],
                           mk)
 
-    def commit(mats, shapes, dshifts=None):
+    def commit(mats, shapes, name, dshifts=None):
         dshifts = dshifts or [1] * len(mats)
         outs = [(_lde_stage(_shape(m), d, log_blowup, shift) if mk is None
                  else _mesh_lde_stage(s, d, log_blowup, shift, mk))(m)
                 for m, s, d in zip(mats, shapes, dshifts)]
         tree = tree_of([o[2] for o in outs],
-                       [(h << log_blowup, w) for h, w in shapes])
+                       [(h << log_blowup, w) for h, w in shapes], name)
         return tree, [o[0] for o in outs], [o[1] for o in outs]
 
     def whole(x, h):
@@ -1156,8 +1172,8 @@ def _prove(machine, config, mk) -> MachineProof:
     # -- transcript ----------------------------------------------------------
     with stage("commit to preprocessed traces"):
         if prep_list:
-            prep_tree, prep_coeffs, prep_ldes = commit(prep_list,
-                                                       prep_shapes)
+            prep_tree, prep_coeffs, prep_ldes = commit(
+                prep_list, prep_shapes, "preprocessed")
             prep_root = prep_tree.root
         else:
             prep_tree, prep_coeffs, prep_ldes = None, [], []
@@ -1166,7 +1182,8 @@ def _prove(machine, config, mk) -> MachineProof:
         challenger.observe_digest(prep_root)
 
     with stage("commit to main traces"):
-        main_tree, main_coeffs, main_ldes = commit(main_traces, main_shapes)
+        main_tree, main_coeffs, main_ldes = commit(main_traces, main_shapes,
+                                                   "main")
     with span("prove: transcript"):
         challenger.observe_digest(main_tree.root)
         perm_challenges = [challenger.sample_ext() for _ in range(3)]
@@ -1191,7 +1208,8 @@ def _prove(machine, config, mk) -> MachineProof:
     perm_flat = [o[0] for o in perm_outs]
     perm_shapes = [(h, int(f.shape[1])) for h, f in zip(heights, perm_flat)]
     with stage("commit to permutation traces"):
-        perm_tree, perm_coeffs, perm_ldes = commit(perm_flat, perm_shapes)
+        perm_tree, perm_coeffs, perm_ldes = commit(perm_flat, perm_shapes,
+                                                   "permutation")
     with span("prove: transcript"):
         challenger.observe_digest(perm_tree.root)
         cs_host = to_numpy(_stack_canon_stage(len(chips), mk)(
@@ -1228,7 +1246,7 @@ def _prove(machine, config, mk) -> MachineProof:
     quot_shapes = [(h, (1 << qd) * 5) for h, qd in zip(heights, qds)]
     with stage("commit to quotient chunks"):
         quotient_tree, quotient_coeffs, quotient_ldes = commit(
-            quotient_mats, quot_shapes,
+            quotient_mats, quot_shapes, "quotient chunks",
             [bb.h_exp(shift, 1 << qd) for qd in qds])
     with span("prove: transcript"):
         challenger.observe_digest(quotient_tree.root)
@@ -1340,8 +1358,8 @@ def _prove(machine, config, mk) -> MachineProof:
                     and not _sharded(1 << (log_m - 1), mk)):
                 current = _gather_stage((1 << log_m, 5), mk)(current)
             pair_mat = _fri_pair_mat(log_m, mk)(current)
-            layer_trees.append(tree_of([pair_mat],
-                                       [(1 << (log_m - 1), 10)]))
+            layer_trees.append(tree_of([pair_mat], [(1 << (log_m - 1), 10)],
+                                       "FRI layer"))
             root = layer_trees[-1]._root
             root_devs.append(root)
             kk = k0 if layer == 0 else 0
