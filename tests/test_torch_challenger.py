@@ -227,7 +227,7 @@ def test_transcript_matches_plain_permutation(param_set, monkeypatch):
 
 
 @pytest.mark.parametrize("missing", ["SRC", "POSEIDON_SRC", "MEMSORT_SRC",
-                                     "MEMROUTE_SRC"])
+                                     "MEMROUTE_SRC", "CBOR_SRC"])
 def test_permute_host_has_no_fallback(monkeypatch, tmp_path, missing):
     """With a source of the native library missing (so none can be built
     or loaded), permute_host raises NativeRunError and never runs the numpy

@@ -169,7 +169,7 @@ def test_write_before_read_at_one_clk_raises_on_both_paths():
 
 
 @pytest.mark.parametrize("missing", ["SRC", "POSEIDON_SRC", "MEMSORT_SRC",
-                                     "MEMROUTE_SRC"])
+                                     "MEMROUTE_SRC", "CBOR_SRC"])
 def test_array_log_has_no_fallback(monkeypatch, tmp_path, missing):
     """With a source of the native library missing (so none can be built
     or loaded), register_range_checks on the native core's op arrays

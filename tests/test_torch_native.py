@@ -316,9 +316,9 @@ def test_no_fallback_when_the_library_is_unavailable(monkeypatch, tmp_path):
 
 def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
     """g++ compiles valida_tpu_torch/native/interpreter.cpp (not the JAX
-    package's copy), native/poseidon.cpp, native/memsort.cpp and
-    native/memroute.cpp into one
-    library in build/valida_tpu_torch/, to a file named by a hash of the
+    package's copy), native/poseidon.cpp, native/memsort.cpp,
+    native/memroute.cpp and native/cbor.cpp into one library in
+    build/valida_tpu_torch/, to a file named by a hash of the
     sources and the flags, written whole and then renamed."""
     import subprocess
     from pathlib import Path
@@ -330,10 +330,12 @@ def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
     assert native_build.POSEIDON_SRC == pkg / "native" / "poseidon.cpp"
     assert native_build.MEMSORT_SRC == pkg / "native" / "memsort.cpp"
     assert native_build.MEMROUTE_SRC == pkg / "native" / "memroute.cpp"
+    assert native_build.CBOR_SRC == pkg / "native" / "cbor.cpp"
     assert native_build.sources() == (native_build.SRC,
                                       native_build.POSEIDON_SRC,
                                       native_build.MEMSORT_SRC,
-                                      native_build.MEMROUTE_SRC)
+                                      native_build.MEMROUTE_SRC,
+                                      native_build.CBOR_SRC)
     assert native_build.BUILD_DIR == pkg.parent / "build" / "valida_tpu_torch"
     assert native_build.SRC.read_bytes() != (
         pkg.parent / "valida_tpu" / "native" / "interpreter.cpp").read_bytes()
@@ -350,12 +352,12 @@ def test_build_compiles_the_ports_source(monkeypatch, tmp_path):
     assert lib == native_build.target() and lib.parent == tmp_path
     assert [p.name for p in tmp_path.iterdir()] == [lib.name]
     (cmd,) = commands
-    assert cmd[0] == "g++" and cmd[-4:] == [
+    assert cmd[0] == "g++" and cmd[-5:] == [
         str(src) for src in native_build.sources()]
     assert native_build.build() == lib and len(commands) == 1
 
 
-SOURCES = ["SRC", "POSEIDON_SRC", "MEMSORT_SRC", "MEMROUTE_SRC"]
+SOURCES = ["SRC", "POSEIDON_SRC", "MEMSORT_SRC", "MEMROUTE_SRC", "CBOR_SRC"]
 
 
 @pytest.mark.parametrize("name", SOURCES)

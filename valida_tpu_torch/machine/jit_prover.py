@@ -1406,7 +1406,7 @@ def _prove(machine, config, mk) -> MachineProof:
         fri_queries = [
             frim.FriQueryProof(commit_phase_openings=[
                 frim.CommitPhaseOpening(pair_row=rows[qi],
-                                        path=list(paths[qi]))
+                                        path=paths[qi])
                 for rows, paths in layer_opens])
             for qi in range(len(qidx))]
         opening_proof = PcsProof(
@@ -1417,7 +1417,7 @@ def _prove(machine, config, mk) -> MachineProof:
                 PcsQueryProof(
                     input_openings=[
                         BatchOpening(opened_rows=[r[qi] for r in rows],
-                                     path=list(paths[qi]))
+                                     path=paths[qi])
                         for rows, paths in round_opens],
                     fri_query=fri_queries[qi])
                 for qi in range(len(qidx))],

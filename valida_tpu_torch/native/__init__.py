@@ -1,8 +1,10 @@
 """ctypes bindings of the native host library: the interpreter core
 (interpreter.cpp), the challenger's Poseidon permutation (poseidon.cpp,
 called by crypto/poseidon.py's `permute_host`), the memory chip's sort
-and range-limb counts (memsort.cpp, `mem_sort`) and the memory log's
-routing to the cpu's three channels (memroute.cpp, `mem_channels`).
+and range-limb counts (memsort.cpp, `mem_sort`), the memory log's
+routing to the cpu's three channels (memroute.cpp, `mem_channels`) and
+the CBOR writer of tooling/serde.py's `cbor_dumps` (cbor.cpp,
+`cbor_write`).
 
 Counterpart of valida_tpu/native/__init__.py.  `run_native(machine)`
 executes the machine's loaded program with the C++ VM and fills its chips'
@@ -22,6 +24,7 @@ is imported.
 from __future__ import annotations
 
 import ctypes
+from itertools import chain
 
 import numpy as np
 
@@ -59,6 +62,8 @@ _SIGNATURES = {
                                      _P, _SIZE, _P]),
     "mem_cpu_channels": (ctypes.c_int, [_P, _P, _P, _P, _SIZE, _P, _SIZE,
                                         _P, _P]),
+    "cbor_write": (ctypes.c_int, [_P, _SIZE, _P, _SIZE, _P, _SIZE, _P, _SIZE,
+                                  _P, _SIZE, _P]),
 }
 
 # kind code -> the CPU log's kind name
@@ -192,6 +197,37 @@ def mem_channels(clk: np.ndarray, is_write: np.ndarray, addr: np.ndarray,
         raise ValueError("mem_channels: a clk decreases or has no CPU op")
     return tuple(tuple(out[ch, :, :k]) for ch, k in
                  enumerate(counts.tolist()))
+
+
+def cbor_write(skeleton: bytearray, marks: list, leaves: list) -> bytes:
+    """The CBOR bytes of `skeleton` with each uint32 array of `leaves`
+    (of one or more dimensions) written at its offset in `marks` as a CBOR
+    array (of arrays, by its shape) of unsigned ints, every head in its
+    shortest form.  One pass of cbor.cpp writes every byte; raises
+    ValueError if the layout does not add up."""
+    lib = library()
+    skel = np.frombuffer(skeleton, dtype=np.uint8)
+    mk = np.array(marks, dtype=np.int64)
+    # each leaf's ndim, then its shape
+    dm = np.fromiter(chain.from_iterable((a.ndim, *a.shape) for a in leaves),
+                     dtype=np.int64)
+    words = (np.concatenate(leaves, axis=None, dtype=np.uint32) if leaves
+             else np.empty(0, dtype=np.uint32))
+    size = ctypes.c_size_t()
+    # 5 bytes a word and 9 a length head: enough for every leaf whose
+    # dimensions are above 0; otherwise the first call returns the bound
+    cap = len(skel) + 5 * len(words) + 9 * (len(dm) + len(words))
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        rc = lib.cbor_write(_ptr(skel), len(skel), _ptr(mk), len(mk),
+                            _ptr(dm), len(dm), _ptr(words), len(words),
+                            _ptr(out), cap, ctypes.byref(size))
+        if rc != 1:
+            break
+        cap = size.value
+    if rc != 0:
+        raise ValueError("cbor_write: the marks, dims and words do not add up")
+    return out[:size.value].tobytes()
 
 
 def run_native(machine, max_steps: int = 1 << 32, build_lists: bool = True,

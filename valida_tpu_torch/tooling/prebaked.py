@@ -7,8 +7,8 @@ caches for the multi-device dry run.  The port compiles no graphs ahead of
 time; its one-time costs are the builds of the CUDA kernels (nvcc, one
 library per csrc/*.cu source, `_build.build_all`) and of the native host
 library (g++, `native/build.py`: the interpreter core, the challenger's
-Poseidon permutation, the memory chip's sort and the memory log's
-routing).  Both go to
+Poseidon permutation, the memory chip's sort, the memory log's routing
+and the proof's CBOR writer).  Both go to
 build/valida_tpu_torch/ under names made from a hash of the sources and
 the flags, so a stale artefact is never loaded: a changed source builds
 anew.

@@ -1,15 +1,18 @@
 """Proof serialization: CBOR interchange format.
 
 Counterpart of valida_tpu/tooling/serde.py, with its own copy of the codec:
-the Rust CLI's ciborium round-trip of `MachineProof`.  A minimal
-self-contained CBOR codec (RFC 8949 subset: uints, negints, byte/text
-strings, arrays, maps) plus structural encoders for MachineProof.  A proof
-of this package serializes to the same bytes as the JAX package's proof of
-the same machine, and either package reads the other's bytes.
+the Rust CLI's ciborium round-trip of `MachineProof`.  A minimal CBOR codec
+(RFC 8949 subset: uints, negints, byte/text strings, arrays, maps) plus
+structural encoders for MachineProof.  The encoder writes uint32 arrays
+through the native host library (native/cbor.cpp) and everything else in
+Python.  A proof of this package serializes to the same bytes as the JAX
+package's proof of the same machine, and either package reads the other's
+bytes.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 
 import numpy as np
@@ -41,44 +44,102 @@ def _enc_head(major: int, value: int, out: bytearray):
         out += struct.pack(">Q", value)
 
 
-def _encode(obj, out: bytearray):
-    if isinstance(obj, bool):
-        out.append(0xF5 if obj else 0xF4)
-    elif isinstance(obj, (int, np.integer)):
-        obj = int(obj)
-        if obj >= 0:
-            _enc_head(0, obj, out)
+# Counts of the encoder: `cbor_dumps` calls, and the integers it wrote one
+# at a time as Python ints (uint32 arrays go to the native writer whole).
+stats = {"serializations": 0, "int_words": 0}
+
+_U32 = np.dtype(np.uint32)
+_MAX_WORD = 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=1024)
+def _text(s: str) -> bytes:
+    """A text string's head and bytes (a proof repeats a few dict keys
+    thousands of times)."""
+    b = s.encode()
+    head = bytearray()
+    _enc_head(3, len(b), head)
+    return bytes(head) + b
+
+
+def _skeleton(obj):
+    """One walk of `obj`: (skeleton, marks, leaves, int words).  The
+    skeleton holds every head, key and scalar in order; each uint32 array
+    of one or more dimensions is a leaf, left out of the skeleton and
+    marked at its offset there.  Every other array is written as its
+    `tolist()`."""
+    out = bytearray()
+    leaves, marks = [], []
+    put, mark = leaves.append, marks.append
+    ints = 0
+
+    def walk(o):
+        nonlocal ints
+        t = type(o)
+        if t is dict:
+            _enc_head(5, len(o), out)
+            for k, v in o.items():
+                if type(k) is str:
+                    out.extend(_text(k))
+                else:
+                    walk(k)
+                if type(v) is np.ndarray and v.dtype == _U32 and v.ndim:
+                    mark(len(out))
+                    put(v)
+                else:
+                    walk(v)
+        elif t is list or t is tuple:
+            _enc_head(4, len(o), out)
+            for v in o:
+                if type(v) is np.ndarray and v.dtype == _U32 and v.ndim:
+                    mark(len(out))
+                    put(v)
+                else:
+                    walk(v)
+        elif isinstance(o, str):
+            out.extend(_text(o))
+        elif isinstance(o, bool):
+            out.append(0xF5 if o else 0xF4)
+        elif isinstance(o, (int, np.integer)):
+            o = int(o)
+            ints += 1
+            if o >= 0:
+                _enc_head(0, o, out)
+            else:
+                _enc_head(1, -1 - o, out)
+        elif isinstance(o, bytes):
+            _enc_head(2, len(o), out)
+            out.extend(o)
+        elif isinstance(o, (list, tuple)):
+            walk(list(o))
+        elif isinstance(o, np.ndarray):
+            if o.dtype == _U32 and o.ndim:
+                mark(len(out))
+                put(o)
+            else:
+                walk(o.tolist())
+        elif isinstance(o, dict):
+            walk(dict(o))
+        elif o is None:
+            out.append(0xF6)
         else:
-            _enc_head(1, -1 - obj, out)
-    elif isinstance(obj, bytes):
-        _enc_head(2, len(obj), out)
-        out += obj
-    elif isinstance(obj, str):
-        b = obj.encode()
-        _enc_head(3, len(b), out)
-        out += b
-    elif isinstance(obj, (list, tuple)):
-        _enc_head(4, len(obj), out)
-        for item in obj:
-            _encode(item, out)
-    elif isinstance(obj, np.ndarray):
-        _encode(obj.tolist(), out)
-    elif isinstance(obj, dict):
-        _enc_head(5, len(obj), out)
-        for k, v in obj.items():
-            _encode(k, out)
-            _encode(v, out)
-    elif obj is None:
-        out.append(0xF6)
-    else:
-        raise TypeError(f"cannot CBOR-encode {type(obj)}")
+            raise TypeError(f"cannot CBOR-encode {type(o)}")
+
+    walk(obj)
+    return out, marks, leaves, ints
 
 
 def cbor_dumps(obj) -> bytes:
+    """The CBOR bytes of `obj`: one walk in Python writes the heads, keys
+    and scalars, then one call of the native writer (native/cbor.cpp)
+    writes them with every uint32 array's words in their places."""
+    from .. import native
+
     with span("serialize: cbor"):
-        out = bytearray()
-        _encode(obj, out)
-        return bytes(out)
+        out, marks, leaves, ints = _skeleton(obj)
+        stats["serializations"] += 1
+        stats["int_words"] += ints
+        return native.cbor_write(out, marks, leaves)
 
 
 class _Decoder:
@@ -148,20 +209,16 @@ def cbor_loads(data: bytes):
 # ---------------------------------------------------------------------------
 
 
-def _digest_obj(d):
-    return [int(x) for x in np.asarray(d)]
-
-
-def _ext_obj(e):
-    return [int(x) for x in e]
-
-
-def _final_poly_obj(fp):
-    """final_poly is one ext scalar (log_final == 0) or a coefficient list
-    of ext scalars (log_final > 0) — preserve the shape byte-for-byte."""
-    if fp and isinstance(fp[0], (tuple, list)):
-        return [_ext_obj(c) for c in fp]
-    return _ext_obj(fp)
+def _words(x) -> np.ndarray:
+    """`x` (an array, a list of digests, a list of ext tuples) as one array
+    of its words: uint32 where every word fits, which the codec writes
+    natively; otherwise as numpy reads it, which the codec writes int by
+    int (an empty list too: no word)."""
+    a = np.asarray(x)
+    if (a.dtype != _U32 and a.dtype.kind in "iu" and a.size
+            and a.min() >= 0 and a.max() <= _MAX_WORD):
+        a = a.astype(np.uint32)
+    return a
 
 
 def _final_poly_from_obj(o):
@@ -170,7 +227,17 @@ def _final_poly_from_obj(o):
     return tuple(int(x) for x in o)
 
 
+# the opened values of a chip, in the order of the proof's bytes
+_OPENED = ("preprocessed_local", "preprocessed_next", "trace_local",
+           "trace_next", "permutation_local", "permutation_next",
+           "quotient_chunks")
+
+
 def proof_to_obj(proof: MachineProof, config=None) -> dict:
+    """The proof as the plain object that `cbor_dumps` writes: dicts and
+    lists as the bytes nest them, every run of words one numpy array (an
+    opened row, a digest, a pair row, a Merkle path [depth, 8], a list of
+    opened ext values [n, 5]), and Python ints for the rest."""
     with span("serialize: to object"):
         return _proof_obj(proof, config)
 
@@ -189,20 +256,20 @@ def _proof_obj(proof: MachineProof, config) -> dict:
     obj = {
         "meta": meta,
         "commitments": {
-            "preprocessed": _digest_obj(proof.commitments.preprocessed),
-            "main_trace": _digest_obj(proof.commitments.main_trace),
-            "perm_trace": _digest_obj(proof.commitments.perm_trace),
-            "quotient_chunks": _digest_obj(proof.commitments.quotient_chunks),
+            "preprocessed": _words(proof.commitments.preprocessed),
+            "main_trace": _words(proof.commitments.main_trace),
+            "perm_trace": _words(proof.commitments.perm_trace),
+            "quotient_chunks": _words(proof.commitments.quotient_chunks),
         },
         "fri": {
-            "commits": [_digest_obj(c) for c in fri.commit_phase_commits],
-            "final_poly": _final_poly_obj(fri.final_poly),
+            "commits": [_words(c) for c in fri.commit_phase_commits],
+            "final_poly": _words(fri.final_poly),
             "pow_witness": int(fri.pow_witness),
             "query_proofs": [
                 [
                     {
-                        "pair_row": [int(x) for x in o.pair_row],
-                        "path": [_digest_obj(p) for p in o.path],
+                        "pair_row": _words(o.pair_row),
+                        "path": _words(o.path),
                     }
                     for o in q.commit_phase_openings
                 ]
@@ -212,8 +279,8 @@ def _proof_obj(proof: MachineProof, config) -> dict:
         "pcs_queries": [
             [
                 {
-                    "rows": [[int(x) for x in r] for r in bo.opened_rows],
-                    "path": [_digest_obj(p) for p in bo.path],
+                    "rows": list(bo.opened_rows),
+                    "path": _words(bo.path),
                 }
                 for bo in qp.input_openings
             ]
@@ -222,15 +289,10 @@ def _proof_obj(proof: MachineProof, config) -> dict:
         "chip_proofs": [
             {
                 "log_degree": cp.log_degree,
-                "cumulative_sum": _ext_obj(cp.cumulative_sum),
+                "cumulative_sum": _words(cp.cumulative_sum),
                 "opened": {
-                    "preprocessed_local": [_ext_obj(v) for v in cp.opened_values.preprocessed_local],
-                    "preprocessed_next": [_ext_obj(v) for v in cp.opened_values.preprocessed_next],
-                    "trace_local": [_ext_obj(v) for v in cp.opened_values.trace_local],
-                    "trace_next": [_ext_obj(v) for v in cp.opened_values.trace_next],
-                    "permutation_local": [_ext_obj(v) for v in cp.opened_values.permutation_local],
-                    "permutation_next": [_ext_obj(v) for v in cp.opened_values.permutation_next],
-                    "quotient_chunks": [_ext_obj(v) for v in cp.opened_values.quotient_chunks],
+                    name: _words(getattr(cp.opened_values, name))
+                    for name in _OPENED
                 },
             }
             for cp in proof.chip_proofs
@@ -240,9 +302,7 @@ def _proof_obj(proof: MachineProof, config) -> dict:
     # (keeps the log_final == 0 byte format unchanged)
     if getattr(proof.opening_proof, "direct_polys", None):
         obj["direct_polys"] = [
-            [[int(x) for x in row] for row in np.asarray(m)]
-            for m in proof.opening_proof.direct_polys
-        ]
+            _words(m) for m in proof.opening_proof.direct_polys]
     return obj
 
 
